@@ -46,3 +46,13 @@ def test_example_inputs_equal(full):
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("batch,seed", [(3, 0), (2, 4)])
+def test_example_train_batch_equal(batch, seed):
+    a = jtesting.make_example_train_batch(jtesting.tiny_config(), batch, seed=seed)
+    b = ttesting.make_example_train_batch(ttesting.tiny_config(), batch, seed=seed)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -6,10 +6,15 @@ them: `python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_kernels_cuda.py -m cuda` (tests/conftest.py imports JAX).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from whmr_tpu_torch.data.assets import synthetic_smpl_assets
 from whmr_tpu_torch.ops import attention as tattn
+from whmr_tpu_torch.ops import rasterizer_kernel as k2
+from whmr_tpu_torch.training.gt_renderer import build_render_consts, raster_inputs
+from whmr_tpu_torch.utils.testing import make_ragged_raster_case
 
 
 @pytest.fixture
@@ -42,3 +47,42 @@ def test_attention_kernel_backward_raises(cuda_device):
     out = tattn.attention(q, q.detach(), q.detach())
     with pytest.raises(NotImplementedError, match="forward-only"):
         out.sum().backward()
+
+
+def _check_k2(got, want):
+    # Each operation rounded once on both sides: mask and zbuf bit for bit.
+    assert torch.equal(got.mask, want.mask)
+    assert torch.equal(got.zbuf, want.zbuf)
+    assert (got.attrs - want.attrs).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_hw", [(16, 8), (8, 8), (4, 32)])
+def test_rasterizer_kernel_ragged(cuda_device, tile_hw):
+    arrays, kw = make_ragged_raster_case()
+    verts, z, attrs = (torch.from_numpy(a).to(cuda_device) for a in arrays[:3])
+    faces = arrays[3]
+    before = k2.rasterize_kernel.launches
+    got = k2.rasterize_kernel(verts, z, attrs, faces, tile_hw=tile_hw, **kw)
+    torch.cuda.synchronize()
+    assert k2.rasterize_kernel.launches == before + 1
+    _check_k2(got, k2.rasterize_kernel_reference(verts, z, attrs, faces, **kw))
+    assert got.mask.any() and not got.mask.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.9, 7.8])
+def test_rasterizer_kernel_gt_render(cuda_device, scale):
+    """The train step's render (13,776-face topology, 128x96 window at
+    origin (16, 0)) of posed bodies, and with the largest GT camera scale,
+    which covers every tile."""
+    rc = build_render_consts(synthetic_smpl_assets(0), device=cuda_device)
+    g = np.random.RandomState(1)
+    verts = torch.tensor(synthetic_smpl_assets(0).v_template[None] + 0.02 * g.randn(4, 6890, 3),
+                         dtype=torch.float32, device=cuda_device)
+    cam = torch.tensor([[scale, 0.02, -0.03]] * 4, dtype=torch.float32, device=cuda_device)
+    vp, vz, attrs, res, origin = raster_inputs(rc, verts, cam)
+    got = k2.rasterize_kernel(vp, vz, attrs, rc.faces, resolution=res, origin=origin)
+    torch.cuda.synchronize()
+    _check_k2(got, k2.rasterize_kernel_reference(vp, vz, attrs, rc.faces, resolution=res, origin=origin))
+    assert got.mask.all() if scale > 5 else not got.mask.all()

@@ -122,5 +122,6 @@ def test_unported_options_raise():
         twhmr.WHMR(cfg.with_overrides(**{"pymaf.backbone": "res50"}))
     model, consts = twhmr.build_model(cfg, dtype=torch.float32, device="cpu")
     inp = {k: t(v) for k, v in make_example_inputs(tiny_config(), 1).items()}
-    with pytest.raises(NotImplementedError, match="train"):
+    # The train-mode forward is ported; its flag must match the module's mode.
+    with pytest.raises(ValueError, match="model.train"):
         model(consts, **inp, train=True)

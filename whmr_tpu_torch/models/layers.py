@@ -67,15 +67,38 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
+# flax's BatchNorm momentum: running = 0.9 * running + 0.1 * batch statistic.
+BN_MOMENTUM = 0.9
+
+
 class _FP32BatchNorm:
-    """Normalise in fp32 (running statistics in eval), return the compute dtype."""
+    """Normalise in fp32, return the compute dtype.
+
+    Eval normalises with the running statistics. Training normalises with
+    the batch's mean and BIASED variance, computed as flax does (fp32,
+    E[x^2] - E[x]^2 clipped at 0), and updates the running statistics with
+    them at flax's momentum. `F.batch_norm(training=True)` is not used: it
+    updates the running variance with the unbiased variance, which would
+    drift from whmr_tpu's by n/(n-1).
+    """
 
     def forward(self, x):
-        y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-            self.training, self.momentum, self.eps,
-        )
-        return y.to(self.compute_dtype)
+        xf = x.float()
+        if not self.training:
+            y = F.batch_norm(
+                xf, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
+            )
+            return y.to(self.compute_dtype)
+        dims = [0] + list(range(2, x.dim()))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+            self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        y = (xf - mean.view(shape)) * (torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        return (y + self.bias.view(shape)).to(self.compute_dtype)
 
 
 class BatchNorm2d(_FP32BatchNorm, nn.BatchNorm2d):
@@ -88,6 +111,24 @@ class BatchNorm1d(_FP32BatchNorm, nn.BatchNorm1d):
     def __init__(self, features, dtype=torch.float32):
         nn.BatchNorm1d.__init__(self, features)
         self.compute_dtype = dtype
+
+
+class Dropout(nn.Module):
+    """Element dropout in training (flax `nn.Dropout`): keep with 1 - p,
+    scale kept values by 1/(1 - p). The keep draws are fp32 uniforms from
+    the given `torch.Generator` (nn.Dropout takes none), so a bf16 and an
+    fp32 model with the same generator state drop the same elements."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 class ConvBN(nn.Sequential):

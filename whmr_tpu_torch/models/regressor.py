@@ -1,9 +1,12 @@
 """Iterative SMPL regressor and world-frame global-orient regressor.
 
 Counterpart of `whmr_tpu/models/regressor.py` (reference `Regressor`
-whmr.py:42-269 and `Global_Orient_Regressor` :272-305), eval mode: one
-residual MLP step over [point features | bbox_info | pose | shape | cam],
-eval-time Gram-Schmidt, an SMPL forward and the projection bundle.
+whmr.py:42-269 and `Global_Orient_Regressor` :272-305): one residual MLP
+step over [point features | bbox_info | pose | shape | cam], an SMPL forward
+and the projection bundle. Eval orthonormalises the rotations (Gram-Schmidt);
+training does not, applies dropout 0.5 after both hidden layers, and gates
+gradients by `train.stage` (whmr.py:142-171): stage 1 trains through the
+crop-frame keypoints and detaches the world branch, stage 2 the reverse.
 
 Dtypes follow whmr_tpu: the MLPs run in the compute dtype, while the pose,
 shape and camera carries and all geometry stay fp32. Where JAX promotes a
@@ -20,7 +23,7 @@ import torch
 import torch.nn as nn
 
 from whmr_tpu_torch.data.assets import SMPLAssets
-from whmr_tpu_torch.models.layers import Linear
+from whmr_tpu_torch.models.layers import Dropout, Linear
 from whmr_tpu_torch.models.smpl import (
     SMPLParams,
     select_h36m_j14,
@@ -96,12 +99,16 @@ def _smpl_out_bundle(
     cam_state: Optional[CamState],
     img_res: Tuple[int, int],
     j_regressor: Optional[torch.Tensor],
+    train: bool = False,
+    stage: int = 2,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """SMPL forward + the output dict of one eval step (whmr.py:132-208);
+    """SMPL forward + the output dict of one step (whmr.py:132-208);
     without `cam_state`, the forward_init subset."""
     out = smpl_forward(consts.smpl, pred_shape, pred_rotmat)
     verts, joints = out.vertices, out.joints
-    pred_kp_2d = weak_perspective_projection(joints, pred_cam, img_res)
+    # Stage 2 training detaches the crop-frame keypoints' joints (whmr.py:142-145).
+    kp_src = joints.detach() if (train and stage != 1) else joints
+    pred_kp_2d = weak_perspective_projection(kp_src, pred_cam, img_res)
     pose_aa = rotmat_to_angle_axis(pred_rotmat.reshape(-1, 3, 3)).reshape(-1, 72)
     kp3d = joints if j_regressor is None else select_h36m_j14(j_regressor, verts)
     sub_verts = torch.einsum("sv,bvk->bsk", consts.dmap0, verts)
@@ -135,7 +142,9 @@ def _smpl_out_bundle(
         pred_cam_t = convert_pare_to_full_img_cam(
             cam, cam_state.bbox_height, cam_state.center, img_w, img_h, cam_state.tz
         )
-        kp_2d_w = perspective_projection(joints, pred_cam_t, focal_length, camera_center)
+        # Stage 1 training detaches the world keypoints' joints (whmr.py:156-171).
+        kp_w_src = joints.detach() if (train and stage == 1) else joints
+        kp_2d_w = perspective_projection(kp_w_src, pred_cam_t, focal_length, camera_center)
         output.update(
             {
                 "kp_2d_w": kp_2d_w / camera_center[:, None, :] - 1.0,
@@ -148,34 +157,41 @@ def _smpl_out_bundle(
 
 
 class Regressor(nn.Module):
-    """One MAF-step residual SMPL regressor, eval mode (keys fc1, fc2,
-    decpose, decshape, deccam)."""
+    """One MAF-step residual SMPL regressor (keys fc1, fc2, decpose,
+    decshape, deccam)."""
 
-    def __init__(self, feat_dim: int, img_res: Tuple[int, int] = (256, 256), dtype=torch.float32):
+    def __init__(self, feat_dim: int, img_res: Tuple[int, int] = (256, 256), stage: int = 2,
+                 dtype=torch.float32):
         super().__init__()
         self.img_res = tuple(img_res)
+        self.stage = stage
         self.compute_dtype = dtype
+        self.drop = Dropout(0.5)
         self.fc1 = Linear(feat_dim + 5 + NPOSE + 10 + 3, 1024, dtype=dtype)
         self.fc2 = Linear(1024, 1024, dtype=dtype)
         self.decpose = Linear(1024, NPOSE, dtype=dtype)
         self.decshape = Linear(1024, 10, dtype=dtype)
         self.deccam = Linear(1024, 3, dtype=dtype)
 
-    def forward(self, consts, feat, cam_state, init_pose, init_shape, init_cam, j_regressor=None):
+    def forward(self, consts, feat, cam_state, init_pose, init_shape, init_cam, j_regressor=None,
+                generator=None):
         """One step (WHMR runs each regressor once, as the reference).
         Returns (output dict, body_feat = [feat | bbox_info])."""
         dt = self.compute_dtype
         x = torch.cat([feat.to(dt), cam_state.bbox_info.to(dt)], dim=1)
         init_pose = init_pose.reshape(x.shape[0], -1)
         xc = torch.cat([x, init_pose.to(dt), init_shape.to(dt), init_cam.to(dt)], dim=1)
-        xc = self.fc2(self.fc1(xc))  # dropout is the identity at eval
+        xc = self.drop(self.fc1(xc), generator)
+        xc = self.drop(self.fc2(xc), generator)
         pred_pose = self.decpose(xc).to(init_pose.dtype) + init_pose
         pred_shape = self.decshape(xc).to(init_shape.dtype) + init_shape
         pred_cam = self.deccam(xc).to(init_cam.dtype) + init_cam
-        # Eval-time orthonormalization (whmr.py:129-130).
-        pred_rotmat = unbiased_gram_schmidt(pred_pose.reshape(-1, 24, 3, 3))
+        pred_rotmat = pred_pose.reshape(-1, 24, 3, 3)
+        if not self.training:
+            pred_rotmat = unbiased_gram_schmidt(pred_rotmat)  # whmr.py:129-130
         output, _ = _smpl_out_bundle(
-            consts, pred_rotmat, pred_shape, pred_cam, cam_state, self.img_res, j_regressor
+            consts, pred_rotmat, pred_shape, pred_cam, cam_state, self.img_res, j_regressor,
+            self.training, self.stage,
         )
         output["pred_pose"] = pred_pose
         return output, x
@@ -195,10 +211,12 @@ def forward_init(consts: BodyConsts, batch_size: int, img_res=(256, 256), j_regr
 
 
 class GlobalOrientRegressor(nn.Module):
-    """World-frame global orientation, eval mode (keys fc1, fc2, decrot).
+    """World-frame global orientation (keys fc1, fc2, decrot).
 
-    The reference's 3-step loop never feeds its prediction back, so at eval
-    one pass gives the same result (whmr.py:296-303).
+    The reference's 3-step loop never feeds its prediction back, so only
+    the last pass counts: training runs all 3 (each with its own dropout
+    draws) and skips Gram-Schmidt; eval runs one pass, which gives the same
+    result, and orthonormalises (whmr.py:296-305).
     """
 
     def __init__(self, feat_dim: int, dtype=torch.float32):
@@ -207,11 +225,16 @@ class GlobalOrientRegressor(nn.Module):
         self.fc1 = Linear(feat_dim + 6 + 9, 2048, dtype=dtype)
         self.fc2 = Linear(2048, 2048, dtype=dtype)
         self.decrot = Linear(2048, 9, dtype=dtype)
+        self.drop = Dropout(0.5)
 
-    def forward(self, body_feat, cam_rotmat, local_orient):
+    def forward(self, body_feat, cam_rotmat, local_orient, generator=None):
         dt = self.compute_dtype
         b = body_feat.shape[0]
         local = local_orient.reshape(b, 9)
-        xc = torch.cat([body_feat.to(dt), rotmat_to_rot6d(cam_rotmat).to(dt), local.to(dt)], dim=1)
-        pred_rot = self.decrot(self.fc2(self.fc1(xc))).to(local.dtype) + local
-        return unbiased_gram_schmidt(pred_rot.reshape(-1, 1, 3, 3))
+        xc0 = torch.cat([body_feat.to(dt), rotmat_to_rot6d(cam_rotmat).to(dt), local.to(dt)], dim=1)
+        for _ in range(3 if self.training else 1):
+            xc = self.drop(self.fc1(xc0), generator)
+            xc = self.drop(self.fc2(xc), generator)
+            pred_rot = self.decrot(xc).to(local.dtype) + local
+        pred_rot = pred_rot.reshape(-1, 1, 3, 3)
+        return pred_rot if self.training else unbiased_gram_schmidt(pred_rot)

@@ -3,8 +3,9 @@
 The vendored mmpose ViT (reference vit.py:200-341) with its torch names:
 padded patch embed (Conv k16 s16 pad 4 -> 16x12 tokens at 256x192), learned
 position embedding with the cls row folded into every token, pre-LN blocks
-with LayerNorm eps 1e-6, and a final LayerNorm. Drop-path is the identity
-at eval, the only mode of this slice.
+with LayerNorm eps 1e-6, and a final LayerNorm. In training each block's
+residual branches pass through stochastic depth (drop path) at a rate rising
+linearly from 0 at the first block to `drop_path_rate` at the last.
 """
 
 from __future__ import annotations
@@ -16,17 +17,38 @@ from whmr_tpu_torch.config import ViTConfig
 from whmr_tpu_torch.models.layers import MLP, Attention, Conv2d, LayerNorm
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth in training (vendored vit.py:47-58): keep
+    a sample's branch with 1 - p and scale it by 1/(1 - p). The draws are
+    fp32 uniforms from the given `torch.Generator` (a compute-dtype draw
+    would quantize the keep probability)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return x / keep * mask.to(x.dtype)
+
+
 class ViTBlock(nn.Module):
-    def __init__(self, dim, num_heads, mlp_ratio, qkv_bias, dtype=torch.float32, attn_impl="einsum"):
+    def __init__(self, dim, num_heads, mlp_ratio, qkv_bias, drop_path=0.0, dtype=torch.float32,
+                 attn_impl="einsum"):
         super().__init__()
         self.norm1 = LayerNorm(dim, 1e-6, dtype=dtype)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype=dtype, impl=attn_impl)
         self.norm2 = LayerNorm(dim, 1e-6, dtype=dtype)
         self.mlp = MLP(dim, int(dim * mlp_ratio), dim, dtype=dtype)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, generator=None):
+        x = x + self.drop_path(self.attn(self.norm1(x)), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 
 class PatchEmbed(nn.Module):
@@ -50,19 +72,20 @@ class ViTBackbone(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, hp * wp + 1, cfg.embed_dim))
         self.blocks = nn.ModuleList(
             ViTBlock(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
+                     drop_path=cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
                      dtype=dtype, attn_impl=cfg.attn_impl)
-            for _ in range(cfg.depth)
+            for i in range(cfg.depth)
         )
         self.last_norm = LayerNorm(cfg.embed_dim, 1e-6, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = self.patch_embed(x)
         b, c, hp, wp = x.shape
         x = x.flatten(2).transpose(1, 2)  # (B, N, C)
         pos = self.pos_embed.to(self.compute_dtype)
         x = x + pos[:, 1:] + pos[:, :1]  # cls-slot folding (vit.py:317-320)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         x = self.last_norm(x)
         return x.reshape(b, hp, wp, c).permute(0, 3, 1, 2)
 
@@ -75,5 +98,5 @@ class ViTFeatureExtractor(nn.Module):
         super().__init__()
         self.backbone = ViTBackbone(cfg, dtype=dtype)
 
-    def forward(self, x):
-        return self.backbone(x)
+    def forward(self, x, generator=None):
+        return self.backbone(x, generator)

@@ -1,9 +1,11 @@
 """The W-HMR forward: CamCalib -> ViT -> deconv pyramid -> Tz head -> MAF
 loop -> global orientation -> world SMPL -> aux heads.
 
-Counterpart of `whmr_tpu/models/whmr.py` (reference models/whmr.py:308-678),
-eval mode. `WHMR.forward` keeps whmr_tpu's interface: NHWC crops, the same
-keyword arguments and the same output keys. Inside, the conv stacks run NCHW
+Counterpart of `whmr_tpu/models/whmr.py` (reference models/whmr.py:308-678).
+`WHMR.forward` keeps whmr_tpu's interface: NHWC crops, the same keyword
+arguments and the same output keys; `train=True` (with `model.train()`) runs
+batch-statistics BatchNorm, drop path, dropout and the stage gating, with
+random draws from the `generator` passed in. Inside, the conv stacks run NCHW
 on channels-last memory, so the NHWC views handed to the MAF sampler are
 free. Submodule names are the reference's, so `state_dict()` keys are those
 of the published `w-hmr-p-vitpose_checkpoint.pt` (including its flat Tz-head
@@ -89,7 +91,7 @@ class WHMR(nn.Module):
         grid_feat = gw * gh * mlp[-1]
         marker_feat = c.pymaf.n_markers * mlp[-1]
         self.regressor = nn.ModuleList(
-            Regressor(grid_feat if i == 0 else marker_feat, c.img_res, dtype=dtype)
+            Regressor(grid_feat if i == 0 else marker_feat, c.img_res, stage=c.train.stage, dtype=dtype)
             for i in range(c.pymaf.n_iter)
         )
 
@@ -137,12 +139,19 @@ class WHMR(nn.Module):
         full_x: Optional[torch.Tensor] = None,
         cam_rotmat: Optional[torch.Tensor] = None,
         meta_masks: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
-        """Eval forward. x: (B, H, W, 3) normalized crops (NHWC); full_x:
-        (B or 1, Hc, Wc, 3) full frames for CamCalib; cam_rotmat: (B, 3, 3).
-        `meta_masks` feeds only the Graphormer stage, which is not ported."""
-        if train:
-            raise NotImplementedError("the train-mode forward comes with the train-step slice")
+        """x: (B, H, W, 3) normalized crops (NHWC); full_x: (B or 1, Hc, Wc, 3)
+        full frames for CamCalib; cam_rotmat: (B, 3, 3). `train` must match
+        the module's mode (`model.train()` / `model.eval()`); `generator`
+        draws the training's drop path and dropout masks (on the inputs'
+        device). `meta_masks` feeds only the Graphormer stage, which is not
+        ported."""
+        if train != self.training:
+            raise ValueError(
+                f"forward(train={train}) on a module in {'train' if self.training else 'eval'} "
+                "mode: call model.train() or model.eval() first"
+            )
         c = self.cfg
         batch_size = x.shape[0]
 
@@ -161,14 +170,15 @@ class WHMR(nn.Module):
             render_rotmat = cam_rotmat
 
         # 2-4. Backbone, mean-parameter init, deconv pyramid.
-        s_feat = self.feature_extractor(x.permute(0, 3, 1, 2))
+        s_feat = self.feature_extractor(x.permute(0, 3, 1, 2), generator)
         smpl_output = forward_init(consts, batch_size, c.img_res, j_regressor)
         out_smpl = [smpl_output]
         levels = self._pyramid_levels(s_feat)
         s_feat = levels[-1]
 
-        # 5. Tz head.
-        tz = tz_head_forward(self.conv, self.transformer_decoder, self.est_Tz, s_feat)
+        # 5. Tz head; stage-1 training detaches the pyramid (whmr.py:567-570).
+        tz_in = s_feat.detach() if (train and c.train.stage == 1) else s_feat
+        tz = tz_head_forward(self.conv, self.transformer_decoder, self.est_Tz, tz_in)
         cam_state = CamState(bbox_info, center, scale, bbox_height, orig_shape, tz)
 
         # 6. MAF loop (whmr.py:580-627).
@@ -185,7 +195,8 @@ class WHMR(nn.Module):
             else:
                 ref_feature, _ = maf(level, smpl_output["markers"].detach(), pred_cam)
             smpl_output, feat_cat = self.regressor[rf_i](
-                consts, ref_feature, cam_state, pred_pose, pred_shape, pred_cam, j_regressor
+                consts, ref_feature, cam_state, pred_pose, pred_shape, pred_cam, j_regressor,
+                generator,
             )
             if rf_i > 0:
                 body_feat = feat_cat
@@ -193,7 +204,7 @@ class WHMR(nn.Module):
 
         # 7. Global orientation -> world SMPL (whmr.py:630-654).
         global_rotmat1 = self.global_orient(
-            body_feat, cam_rotmat.to(body_feat.dtype), smpl_output["rotmat"][:, 0]
+            body_feat, cam_rotmat.to(body_feat.dtype), smpl_output["rotmat"][:, 0], generator
         )
         global_aa = rotmat_to_angle_axis(global_rotmat1.reshape(-1, 3, 3)).reshape(-1, 3)
         global_pose = torch.cat([global_aa, smpl_output["pose"][:, 3:]], dim=1)
@@ -286,7 +297,7 @@ def init_parameters(model: WHMR, generator: torch.Generator) -> None:
 def build_model(
     cfg: WHMRConfig, dtype=torch.bfloat16, device=None, seed: int = 0
 ) -> Tuple[WHMR, BodyConsts]:
-    """The eval-mode model with seeded random weights, and its BodyConsts
+    """The model, in eval mode, with seeded random weights, and its BodyConsts
     from the synthetic SMPL assets, both on `device`: the card when None,
     never a silent fall back to the CPU."""
     if device is None:

@@ -113,7 +113,8 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         raise NotImplementedError(
-            "attention (K1) is forward-only; the train-step slice adds its backward"
+            "attention (K1) is forward-only: whmr_tpu defines no VJP for its Pallas kernel, "
+            'and its train step runs vit.attn_impl="einsum"'
         )
 
 

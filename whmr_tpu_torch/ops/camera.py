@@ -2,9 +2,9 @@
 
 Counterpart of `whmr_tpu/ops/camera.py` (reference `utils/geometry.py`
 projection :289, perspective_projection :310, convert_pare_to_full_img_cam
-:139, and `utils/cam_utils.py` bin decoding). Geometry runs in fp32 with TF32
-off, the torch form of whmr_tpu's `precision=HIGHEST`.
-`estimate_translation` arrives with the train-step slice.
+:139, estimate_translation :386, and `utils/cam_utils.py` bin decoding).
+Geometry runs in fp32 with TF32 off, the torch form of whmr_tpu's
+`precision=HIGHEST`.
 """
 
 from __future__ import annotations
@@ -67,6 +67,52 @@ def convert_pare_to_full_img_cam(
     cx = 2 * (bbox_center[:, 0] - (img_w / 2.0)) / (s * bbox_height)
     cy = 2 * (bbox_center[:, 1] - (img_h / 2.0)) / (s * bbox_height)
     return torch.stack([tx + cx, ty + cy, tz], dim=-1)
+
+
+def estimate_translation(
+    joints_3d: torch.Tensor,
+    joints_2d: torch.Tensor,
+    focal_length: float = 5000.0,
+    img_size: Tuple[float, float] = (224.0, 224.0),
+    use_joints_slice: bool = True,
+) -> torch.Tensor:
+    """Batched weighted least-squares camera translation (geometry.py:344-408
+    as one (B, 3, 3) solve, whmr_tpu/ops/camera.py:122-175).
+
+    Two rows per joint, weighted by sqrt(conf):
+        [f, 0, cx - u] t = (u - cx) z - f X
+        [0, f, cy - v] t = (v - cy) z - f Y
+    joints_3d: (B, J, 3); joints_2d: (B, J, 3) pixels with confidence last.
+
+    A singular system gives non-finite values, as `jnp.linalg.solve` does,
+    and neither raises nor waits for the device (`solve_ex`, not `solve`);
+    `gt_camera_from_cam_t` maps them to its far default.
+    """
+    if use_joints_slice:
+        joints_3d = joints_3d[:, 25:]
+        joints_2d = joints_2d[:, 25:]
+    conf = joints_2d[..., 2]
+    p2d = joints_2d[..., :2]
+    f = float(focal_length)
+    z = joints_3d[..., 2]
+    xy = joints_3d[..., :2]
+    w = torch.sqrt(conf.clamp(min=0.0))[..., None]  # (B, J, 1)
+    # p2d - center from Python scalars: no host tensor is copied to the card.
+    d = torch.stack([p2d[..., 0] - img_size[0] / 2.0, p2d[..., 1] - img_size[1] / 2.0], dim=-1)
+
+    b, j = z.shape
+    q = torch.zeros(b, j, 2, 3, dtype=joints_3d.dtype, device=joints_3d.device)
+    q[:, :, 0, 0] = f
+    q[:, :, 1, 1] = f
+    q[..., 2] = -d
+    rhs = d * z[..., None] - f * xy  # (B, J, 2)
+    q_flat = (q * w[..., None]).reshape(b, 2 * j, 3)
+    r_flat = (rhs * w).reshape(b, 2 * j)
+    a_mat = torch.einsum("bnk,bnl->bkl", q_flat, q_flat)
+    b_vec = torch.einsum("bnk,bn->bk", q_flat, r_flat)
+    sol, info = torch.linalg.solve_ex(a_mat, b_vec[..., None])
+    # solve_ex leaves whatever the factorisation produced where a pivot is 0.
+    return torch.where(info[:, None] == 0, sol[..., 0], float("nan"))
 
 
 # CamCalib bin ranges (reference cam_utils.py:39,55,103,127-135).

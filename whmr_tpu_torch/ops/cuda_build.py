@@ -47,32 +47,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> str:
-    """Compile the named kernel unless it is built already.
+def build_all(names) -> Dict[str, str]:
+    """Compile the named kernels that are not built yet: one nvcc process
+    for each source, all started together.
 
-    Returns the compiler output ("" when nothing was compiled; ptxas prints
-    registers, shared memory and spills per kernel). Raises RuntimeError
-    when nvcc fails.
+    Returns the compiler output of each ("" when nothing was compiled;
+    ptxas prints registers, shared memory and spills per kernel). Raises
+    RuntimeError when any nvcc fails, after all have ended.
     """
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return proc.stdout
+    outputs = {name: "" for name in names}
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{text}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+            outputs[name] = text
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return outputs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed (cached per process)."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
+        build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
