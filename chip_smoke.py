@@ -8,12 +8,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    build/, one nvcc for each source, all started together; prints ptxas's
    registers and spills.
 3. Kernels: holds each kernel against its plain PyTorch version on the
-   card. K1 (attention) at the forward's shapes and a ragged one, in bf16 and
-   fp32. K2 (rasterizer) at the train step's render (B=64 posed bodies with
-   their least-squares GT cameras, the 13,776-face topology, the 128x96
-   window at origin (16, 0)), on a ragged case (ties inside and across
-   chunks, padding faces, sides that are no multiple of the tile) and with
-   the largest GT camera, which covers every tile.
+   card. K1 (attention) and K3 (fused_attention, the same function with one
+   block per batch row) at the forward's shapes and a ragged one, in bf16
+   and fp32, at one bf16 ulp. K2 (rasterizer) at the train step's render
+   (B=64 posed bodies with their least-squares GT cameras, the 13,776-face
+   topology, the 128x96 window at origin (16, 0)), on a ragged case (ties
+   inside and across chunks, padding faces, sides that are no multiple of
+   the tile) and with the largest GT camera, which covers every tile.
 4. Forward path: the full-width WHMR forward (ViT-B, 3 MAF steps, CamCalib,
    world SMPL) in bf16 with vit.attn_impl="pallas", seeded random weights and
    synthetic SMPL assets: B=16 crops without a frame and B=48 crops with one
@@ -35,6 +36,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside its bound, its plain version and the PyTorch library call for the
    same function (none for K2); forward crops/s at B=48 with "pallas" and
    with "einsum"; train step ms and crops/s at B=64; peak memory.
+7. Trainer path: `Trainer.fit` at the same width, 2 epochs x 3 steps of
+   B=64 fed by the port's BatchLoader and device_prefetch from an in-memory
+   dataset, log_every=1, an async save every 4 steps and validation over 2
+   batches of 48. Counts the launches over the fit (K2 once a step, K1 and
+   K3 never), checks 6 finite metric records, the validation count and
+   PA-MPJPE, the checkpoints on disk (steps 3, 4, 6 and best/), the step-4
+   checkpoint's epoch and batch, and that a fresh Trainer resumes to the
+   live parameters, BatchNorm buffers and Adam moments bit for bit. Then a
+   SIGTERM after the loader's second batch: SystemExit(0) with a checkpoint
+   at step 2, batch 2, and a resume that ends the epoch at step 3. Times the
+   fit's ms a step beside the bare step's and its host time by span
+   (profiling.Timer), a blocking and an async checkpoint save, the save's
+   host snapshot alone into fresh and into reused host pages, and the
+   checkpoint's size. Its run directories live under build/ and are deleted
+   at the end.
 
 Output: a line with the card's name and power limit, one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}.
@@ -43,9 +59,12 @@ Output: a line with the card's name and power limit, one JSON line
 from __future__ import annotations
 
 import json
+import shutil
+import signal
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -53,6 +72,7 @@ import torch.nn.functional as F
 
 from whmr_tpu_torch.config import WHMRConfig
 from whmr_tpu_torch.data.assets import synthetic_smpl_assets
+from whmr_tpu_torch.data.loader import BatchLoader, device_prefetch
 from whmr_tpu_torch.models.smpl import smpl_forward
 from whmr_tpu_torch.models.whmr import WHMR, build_model
 from whmr_tpu_torch.ops import attention as k1
@@ -62,6 +82,9 @@ from whmr_tpu_torch.ops.iuv import iuv_img2map
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
 from whmr_tpu_torch.training import train_step as ts
 from whmr_tpu_torch.training.gt_renderer import build_render_consts, raster_inputs
+from whmr_tpu_torch.training.trainer import Trainer
+from whmr_tpu_torch.utils import profiling
+from whmr_tpu_torch.utils.checkpoint import CheckpointManager, _to_host
 from whmr_tpu_torch.utils.testing import (
     make_example_inputs,
     make_example_train_batch,
@@ -78,6 +101,9 @@ KERNELS = ("attention", "rasterizer")
 # 3 mul + 2 add, a select and a min.
 RASTER_OPS_PER_PAIR = 3 * 4 + 3 + 5 + 2
 TRAIN_STEPS = 3
+# The trainer path: 2 epochs of 3 steps, validation over 2 batches of 48.
+TRAINER_STEPS_PER_EPOCH = 3
+VAL_BATCHES, VAL_BATCH = 2, 48
 # Parameters whose gradient is structurally zero in the stage-2 train step
 # at the default loss weights, in whmr_tpu as here: CamCalib (no full frame
 # in training), and the Tz head and global-orientation regressor, which
@@ -86,6 +112,19 @@ UNREACHED = ("cam_model.", "conv.", "transformer_decoder.", "est_Tz.", "global_o
 # bf16 step-1 loss against the fp32 twin's, relative: about 10x the reading
 # on an H100 80GB HBM3 (4.1e-5).
 LOSS_RTOL = 5e-4
+
+
+# Each kernel wrapper's launch count, by the name the kernels line gives it.
+WRAPPERS = {"attention": k1.attention, "fused_attention": k1.fused_attention, "rasterizer": k2.rasterize_kernel}
+
+
+def reset_launches():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 class SmokeError(RuntimeError):
@@ -189,13 +228,23 @@ def phase_kernels():
             log(f"K1 {tuple(shape)} {str(dtype)[6:]}: max_abs_err {errs[(shape, dtype)]:.3g} "
                 f"(tolerance {tol.max().item():.3g})")
             check(bool((err <= tol).all()), f"K1 disagrees with its plain version at {shape} {dtype}")
-    q = torch.randn(1, 2, 16, 32, device="cuda", requires_grad=True)
-    try:
-        k1.attention(q, q.detach(), q.detach()).sum().backward()
-    except NotImplementedError:
-        log("K1 backward raises NotImplementedError (forward-only)")
-    else:
-        raise SmokeError("backward through K1 did not raise")
+            # K3 computes K1's function with K1's numerics: the same plain
+            # version and tolerance.
+            got3 = k1.fused_attention(q, k, v)
+            torch.cuda.synchronize()
+            err3 = (got3.float() - want.float()).abs()
+            errs[("K3", shape, dtype)] = err3.max().item()
+            log(f"K3 {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err3.max().item():.3g} "
+                f"(tolerance {tol.max().item():.3g})")
+            check(bool((err3 <= tol).all()), f"K3 disagrees with its plain version at {shape} {dtype}")
+    for name, fn in (("K1", k1.attention), ("K3", k1.fused_attention)):
+        q = torch.randn(1, 2, 16, 32, device="cuda", requires_grad=True)
+        try:
+            fn(q, q.detach(), q.detach()).sum().backward()
+        except NotImplementedError:
+            log(f"{name} backward raises NotImplementedError (forward-only)")
+        else:
+            raise SmokeError(f"backward through {name} did not raise")
     return errs
 
 
@@ -231,12 +280,13 @@ def phase_main_path():
     model(consts, **inputs[runs[0]])  # first call: cuDNN/cuBLAS set-up outside the count
     torch.cuda.synchronize()
 
-    k1.attention.launches = 0
+    reset_launches()
     outs = {r: model(consts, **inputs[r]) for r in runs}
     torch.cuda.synchronize()
-    launches = {"attention": k1.attention.launches}
+    launches = read_launches()
     log(f"main path: {len(runs)} forwards, launches {launches}")
     check(launches["attention"] == 12 * len(runs), f"K1 launched {launches['attention']} times, want 12 a forward")
+    check(launches["fused_attention"] == 0 and launches["rasterizer"] == 0, "K2 or K3 launched in the forward")
     for (b, frame), out in outs.items():
         for name, v in zip(("verts", "global_verts"), _verts(out)):
             check(v.shape == (b, 6890, 3), f"{name} shape {tuple(v.shape)} at B={b}")
@@ -283,7 +333,25 @@ def phase_times(cfg, model, consts, inputs, launches, errs):
         log(f"K1 B={b} bf16: {ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us ({bound_by}); "
             f"plain {plain_ms * 1e3:.1f} us; scaled_dot_product_attention {library_ms * 1e3:.1f} us")
         if b == 48:
+            ms3 = cuda_ms(lambda: k1.fused_attention(q, k, v), 200)
+            log(f"K3 B={b} bf16: {ms3 * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us ({bound_by}); "
+                f"plain {plain_ms * 1e3:.1f} us; scaled_dot_product_attention {library_ms * 1e3:.1f} us")
             kernels.append({
+                "name": "fused_attention",
+                "route": "cuda",
+                "source": "whmr_tpu_torch/csrc/attention.cu",
+                "replaces": "whmr_tpu/ops/attention_pallas.py:108",
+                # no path calls K3: main() adds the train and fit paths'
+                # counts to the forwards', all checked to be 0
+                "launches": launches["fused_attention"],
+                "max_abs_err": errs[("K3", shape, torch.bfloat16)],
+                "ms": ms3,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+            })
+            kernels.insert(0, {
                 "name": "attention",
                 "route": "cuda",
                 "source": "whmr_tpu_torch/csrc/attention.cu",
@@ -441,17 +509,17 @@ def phase_train(cfg, model, consts, rc, batch):
     params0 = {k: p.detach().clone() for k, p in state.params.items()}
     stats0 = {k: b.clone() for k, b in state.batch_stats.items()}
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k1.attention.launches = 0
-    k2.rasterize_kernel.launches = 0
+    reset_launches()
     history = []
     for _ in range(TRAIN_STEPS):
         state, metrics = ts.train_step(cfg, model, state, consts, batch, g, rc)
         history.append(metrics)
     torch.cuda.synchronize()
-    launches = {"attention": k1.attention.launches, "rasterizer": k2.rasterize_kernel.launches}
+    launches = read_launches()
     log(f"train path: {TRAIN_STEPS} steps at B={cfg.train.batch_size}, launches {launches}")
     check(launches["rasterizer"] == TRAIN_STEPS, f"K2 launched {launches['rasterizer']} times, want 1 a step")
-    check(launches["attention"] == 0, "K1 launched in training, which runs vit.attn_impl='einsum'")
+    check(launches["attention"] == 0 and launches["fused_attention"] == 0,
+          "K1 or K3 launched in training, which runs vit.attn_impl='einsum'")
     check(state.step == TRAIN_STEPS and state.opt_state.count == TRAIN_STEPS, f"state.step {state.step}")
     for i, metrics in enumerate(history):
         bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
@@ -479,7 +547,8 @@ def phase_train(cfg, model, consts, rc, batch):
 
 def phase_train_times(cfg, model, consts, rc, batch, state, launches, k2_err):
     """K2 at the train render beside its bound and plain version; the train
-    step's time, throughput and peak memory. Returns K2's kernels entry."""
+    step's time, throughput and peak memory. Returns the step's ms and K2's
+    kernels entry."""
     vp, vz, attrs, res, origin = train_raster_inputs(cfg, consts, rc, batch)
     tile_hw = k2._pick_tile_hw(*res, 128)
     tables, bbox = k2.raster_tables(vp, vz, attrs, rc.faces)
@@ -516,7 +585,7 @@ def phase_train_times(cfg, model, consts, rc, batch, state, launches, k2_err):
         f"(steps {[round(x * 1e3, 2) for x in steps]} ms); GT targets (SMPL, camera fit, render, "
         f"IUV encode) {targets_ms:.2f} ms on the device; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {
+    return np.mean(steps) * 1e3, {
         "name": "rasterizer",
         "route": "cuda",
         "source": "whmr_tpu_torch/csrc/rasterizer.cu",
@@ -531,6 +600,222 @@ def phase_train_times(cfg, model, consts, rc, batch, state, launches, k2_err):
     }
 
 
+class _SampleDataset:
+    """An in-memory dataset of per-sample dicts (the BatchLoader's input)."""
+
+    def __init__(self, batches):
+        self.samples = [{k: v[i] for k, v in b.items()} for b in batches for i in range(len(b["img"]))]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def _synced_ms(fn, n):
+    """Host milliseconds a call of `fn`, each call synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _same_state(a, b):
+    """Parameters, BatchNorm buffers and Adam moments bit for bit."""
+    pairs = list(zip(a.params.values(), b.params.values()))
+    pairs += list(zip(a.batch_stats.values(), b.batch_stats.values()))
+    pairs += list(zip(a.opt_state.mu + a.opt_state.nu, b.opt_state.mu + b.opt_state.nu))
+    return a.opt_state.count == b.opt_state.count and all(torch.equal(x, y) for x, y in pairs)
+
+
+def phase_trainer(cfg, consts, train_ms):
+    """The trainer path at full width: Trainer.fit over the port's BatchLoader
+    and device_prefetch, with validation, an async mid-epoch save, the epoch
+    saves, a bit-exact resume, and a SIGTERM preemption save and resume."""
+    b = cfg.train.batch_size
+    data = [make_keypoints_consistent(consts, make_example_train_batch(cfg, b, seed=i), seed=7 + i)
+            for i in range(TRAINER_STEPS_PER_EPOCH)]
+    loader = BatchLoader(_SampleDataset(data), batch_size=b, shuffle=True, num_workers=4, seed=0)
+    val = [make_example_train_batch(cfg, VAL_BATCH, seed=100 + i) for i in range(VAL_BATCHES)]
+    marks = {}
+
+    def loader_factory(epoch):
+        marks[f"epoch{epoch}_start"] = time.perf_counter()
+        loader.set_epoch(epoch)
+        return loader
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_runs"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log(f"trainer: run dirs under {root}, {shutil.disk_usage(root).free / 2**30:.0f} GiB free")
+    try:
+        trainer = Trainer(cfg, str(root / "run"), dtype=torch.bfloat16, seed=0,
+                          steps_per_epoch=TRAINER_STEPS_PER_EPOCH, device="cuda")
+        validate = trainer.make_validate_fn(lambda: iter(val))
+
+        def timed_validate(state):
+            marks[f"val{trainer.epoch}"] = time.perf_counter()
+            return validate(state)
+
+        # Where the fit's host time goes: the trainer's own spans (a step's
+        # enqueue, the host launching its kernels while the card runs
+        # behind; the metric read-back; the saves) and each host batch the
+        # loader hands device_prefetch, which fetches 2 ahead.
+        trainer.timer = timer = profiling.Timer()
+
+        def timed_loader(epoch):
+            it = iter(loader_factory(epoch))
+
+            def fetch():
+                with timer.span("loader"):
+                    return next(it, None)
+            return iter(fetch, None)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(timed_loader, num_epochs=2, validate_fn=timed_validate, log_every=1, save_every=4)
+        torch.cuda.synchronize()
+        trainer.timer = None
+        peak = profiling.device_memory_stats()["allocated_bytes.all.peak"] / 2**30
+        launches = read_launches()
+        steps = 2 * TRAINER_STEPS_PER_EPOCH
+        log(f"trainer path: Trainer.fit, 2 epochs x {TRAINER_STEPS_PER_EPOCH} steps at B={b}, launches {launches}")
+        check(trainer.state.step == steps, f"trainer state.step {trainer.state.step}, want {steps}")
+        check(launches["rasterizer"] == steps, f"K2 launched {launches['rasterizer']} times in fit, want {steps}")
+        check(launches["attention"] == 0 and launches["fused_attention"] == 0, "attention kernels launched in training")
+        recs = _records(trainer.metrics.path)
+        train_recs = [r for r in recs if "loss" in r]
+        val_recs = [r for r in recs if "val_count" in r]
+        check(len(train_recs) == steps and [r["step"] for r in train_recs] == list(range(1, steps + 1)),
+              f"metric records at steps {[r['step'] for r in train_recs]}")
+        check(all(np.isfinite(v) for r in train_recs for k, v in r.items() if k not in ("step", "time")),
+              "non-finite metric records")
+        check(len(val_recs) == 2, f"{len(val_recs)} validation records, want 2")
+        for r in val_recs:
+            check(r["val_count"] == VAL_BATCHES * VAL_BATCH, f"validation count {r['val_count']}")
+            check(all(np.isfinite(r[k]) for k in ("val_mpjpe", "val_pa_mpjpe", "val_pve")), f"validation {r}")
+        log(f"trainer: losses {[round(r['loss'], 3) for r in train_recs]}; validation (count, PA-MPJPE mm) "
+            f"{[(int(r['val_count']), round(r['val_pa_mpjpe'], 2)) for r in val_recs]}")
+        check(trainer.ckpt.restore_best() is not None, "no best/ checkpoint")
+        check(trainer.ckpt._steps() == [3, 4, 6], f"checkpoint steps {trainer.ckpt._steps()}, want [3, 4, 6]")
+        mid = trainer.ckpt.restore(step=4)
+        check((mid["epoch"], mid["batch_idx"]) == (1, 1), f"step 4 checkpoint at epoch {mid['epoch']}, batch {mid['batch_idx']}")
+        del mid
+        fresh = Trainer(cfg, str(root / "run"), dtype=torch.bfloat16, seed=1,
+                        steps_per_epoch=TRAINER_STEPS_PER_EPOCH, device="cuda")
+        check(fresh.resume(), "resume found no checkpoint")
+        check((fresh.state.step, fresh.epoch, fresh.batch_idx) == (steps, 2, 0),
+              f"resumed at step {fresh.state.step}, epoch {fresh.epoch}, batch {fresh.batch_idx}")
+        check(_same_state(trainer.state, fresh.state), "resumed state differs from the live one")
+        log(f"trainer: best/ and steps {trainer.ckpt._steps()} on disk; step 4 at epoch 1, batch 1; a fresh "
+            f"Trainer resumed to step {steps}, epoch 2, batch 0 with parameters, BatchNorm buffers and Adam "
+            f"moments bit for bit")
+        del fresh
+
+        epoch_s = marks["val1"] - marks["epoch1_start"]
+        t = {r["step"]: r["time"] for r in train_recs}
+        log(f"trainer: Trainer.fit {epoch_s / TRAINER_STEPS_PER_EPOCH * 1e3:.2f} ms a step over epoch 2 "
+            f"(host clock, {TRAINER_STEPS_PER_EPOCH} steps incl. the step-4 async save's snapshot and a metric "
+            f"read-back a step); between metric records (ms): "
+            f"{[round((t[i + 1] - t[i]) * 1e3, 2) for i in range(1, steps)]} (3->4 holds the validation and "
+            f"the epoch save; 4->6 the step-4 write in flight); bare train_step {train_ms:.2f} ms a step in "
+            f"this run; peak memory {peak:.2f} GiB")
+        log("trainer: host ms in the fit by span, in order (step: steps 1-6; log: the read-back after each; "
+            "save: steps 3, 4 (async), 6; loader: 4 fetches an epoch, the last finding its end): "
+            + "; ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in timer.records.items()))
+
+        # The checkpoint, and what its background write costs the loop: the
+        # trainer's step on one fed batch, synchronised, without and with a
+        # write in flight.
+        payload = trainer._payload(0)
+        ckpt_dir = root / "timing"
+        mgr = CheckpointManager(str(ckpt_dir))
+        t0 = time.perf_counter()
+        mgr.save(1, payload, block=True)
+        blocking_s = time.perf_counter() - t0
+        fed = next(device_prefetch(iter(data[:1]), size=1, device="cuda"))
+        quiet_ms = _synced_ms(lambda: trainer._step(fed), 3)
+        t0 = time.perf_counter()
+        mgr.save(2, payload, block=False)
+        snapshot_s = time.perf_counter() - t0
+        busy_ms = _synced_ms(lambda: trainer._step(fed), 3)
+        mgr.wait_until_finished()
+        async_s = time.perf_counter() - t0
+        size = (ckpt_dir / "1" / "payload.pt").stat().st_size
+        # The snapshot alone (the save's host copy), into fresh host pages
+        # (a third copy while two are held) and into pages freed just before.
+        held = [_to_host(payload), _to_host(payload)]
+        t0 = time.perf_counter()
+        held.append(_to_host(payload))
+        fresh_s = time.perf_counter() - t0
+        held.clear()
+        t0 = time.perf_counter()
+        held.append(_to_host(payload))
+        reused_s = time.perf_counter() - t0
+        del held
+        n_params = sum(p.numel() for p in trainer.state.params.values())
+        log(f"checkpoint: {n_params / 1e6:.1f} M parameters, {size / 1e9:.3f} GB on disk; blocking save "
+            f"{blocking_s:.3f} s; async save returns after its snapshot in {snapshot_s:.3f} s, its write "
+            f"ends {async_s:.3f} s after the call; the snapshot alone {fresh_s:.3f} s into fresh host pages, "
+            f"{reused_s:.3f} s into pages freed just before")
+        log(f"trainer step on a fed batch: {quiet_ms:.2f} ms a step alone, {busy_ms:.2f} ms a step while an "
+            f"async checkpoint write runs (3 synchronised steps each)")
+        del trainer, payload, mgr, fed
+        torch.cuda.empty_cache()
+
+        phase_preemption(cfg, root, loader, loader_factory)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_preemption(cfg, root, loader, loader_factory):
+    """SIGTERM after the loader's second batch: the run saves at the next
+    batch boundary (step 2, batch 2) and exits 0; a fresh Trainer resumes
+    there and finishes the epoch at step 3."""
+    def preempting(epoch):
+        for i, batch in enumerate(loader_factory(epoch)):
+            yield batch
+            if i == 1:
+                signal.raise_signal(signal.SIGTERM)
+
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        run = Trainer(cfg, str(root / "preempt"), dtype=torch.bfloat16, seed=0,
+                      steps_per_epoch=TRAINER_STEPS_PER_EPOCH, device="cuda")
+        run.install_preemption_handler()
+        try:
+            run.fit(preempting, num_epochs=1, log_every=1)
+        except SystemExit as e:
+            check(e.code == 0, f"preemption exited with code {e.code}")
+        else:
+            raise SmokeError("SIGTERM did not stop Trainer.fit")
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    saved = run.ckpt.restore()
+    check((saved["step"], saved["epoch"], saved["batch_idx"]) == (2, 0, 2),
+          f"preemption checkpoint at step {saved['step']}, epoch {saved['epoch']}, batch {saved['batch_idx']}")
+    del run, saved
+    resumed = Trainer(cfg, str(root / "preempt"), dtype=torch.bfloat16, seed=1,
+                      steps_per_epoch=TRAINER_STEPS_PER_EPOCH, device="cuda")
+    check(resumed.resume() and (resumed.state.step, resumed.batch_idx) == (2, 2), "resume after preemption")
+    reset_launches()
+    resumed.fit(loader_factory, num_epochs=1, log_every=1)
+    launches = read_launches()
+    check(resumed.state.step == TRAINER_STEPS_PER_EPOCH and launches["rasterizer"] == 1,
+          f"after the resume the epoch ended at step {resumed.state.step} with {launches}")
+    log(f"preemption: SIGTERM after batch 2 -> SystemExit(0) with a checkpoint at step 2, batch 2; "
+        f"resume ran the epoch's last batch to step {resumed.state.step}")
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -541,7 +826,15 @@ def main():
     cfg, model, consts, inputs, launches = phase_main_path()
     state, train_launches = phase_train(train_cfg, train_model, train_consts, rc, batch)
     kernels = phase_times(cfg, model, consts, inputs, launches, errs)
-    kernels.append(phase_train_times(train_cfg, train_model, train_consts, rc, batch, state, train_launches, k2_err))
+    train_ms, k2_entry = phase_train_times(train_cfg, train_model, train_consts, rc, batch, state, train_launches, k2_err)
+    kernels.append(k2_entry)
+    del model, inputs, train_model, state, batch
+    torch.cuda.empty_cache()
+    fit_launches = phase_trainer(train_cfg, train_consts, train_ms)
+    # K3 runs on no path: its count is the forwards', the train steps' and
+    # the fit's, each read over its run (and each checked to be 0).
+    k3 = next(k for k in kernels if k["name"] == "fused_attention")
+    k3["launches"] += train_launches["fused_attention"] + fit_launches["fused_attention"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""K1 (whmr_tpu_torch.ops.attention) against whmr_tpu's Pallas kernel.
+"""K1 and K3 (whmr_tpu_torch.ops.attention) against whmr_tpu's Pallas kernels.
 
-On the CPU the wrapper runs its plain PyTorch version; the JAX side runs
-`fused_attention_heads` in interpret mode, as whmr_tpu's own tests do. The
-CUDA kernel itself is held against the plain version on a card by
-tests/test_torch_kernels_cuda.py and chip_smoke.py.
+On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
+`fused_attention_heads` (K1) or `fused_attention` (K3) in interpret mode, as
+whmr_tpu's own tests do. The CUDA kernels themselves are held against the
+plain version on a card by tests/test_torch_kernels_cuda.py and
+chip_smoke.py.
 """
 
 import jax
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from whmr_tpu.models import layers as jlayers
-from whmr_tpu.ops.attention_pallas import fused_attention_heads
+from whmr_tpu.ops.attention_pallas import fused_attention, fused_attention_heads
 from whmr_tpu_torch.models import layers as tlayers
 from whmr_tpu_torch.ops import attention as tattn
 from whmr_tpu_torch.utils.convert import linear_from_flax
@@ -50,6 +51,28 @@ def test_plain_matches_pallas_bf16(shape):
     assert np.mean(n(got) == n(want)) > 0.99
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_attention_plain_matches_pallas(shape, dtype):
+    """K3 on the CPU against whmr_tpu's `fused_attention(interpret=True)`, at
+    K1's tolerances: fp32 2e-5; bf16 one ulp (2**-7 at |o| < 2), with 99 %
+    of the outputs equal."""
+    q, k, v = map(jnp.asarray, _qkv(shape, 2))
+    if dtype == "bf16":
+        q, k, v = (x.astype(jnp.bfloat16) for x in (q, k, v))
+    want = fused_attention(q, k, v, interpret=True)
+    tdtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    got = tattn.fused_attention(*(t(np.asarray(x, np.float32), tdtype) for x in (q, k, v)))
+    assert got.dtype == tdtype and got.shape == shape
+    if dtype == "fp32":
+        np.testing.assert_allclose(n(got), n(want), atol=2e-5)
+    else:
+        np.testing.assert_allclose(n(got), n(want), atol=2 ** -7)
+        assert np.mean(n(got) == n(want)) > 0.99
+    with pytest.raises(ValueError):
+        tattn.fused_attention(got[0], got[0], got[0])
+
+
 def test_wrapper_checks_and_forward_only():
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
     out = tattn.attention(q, q.detach(), q.detach())
@@ -68,6 +91,10 @@ def test_wrapper_checks_and_forward_only():
     before = tattn.attention.launches
     tattn.attention(q.detach(), q.detach(), q.detach())
     assert tattn.attention.launches == before  # the CPU path launches no kernel
+    out = tattn.fused_attention(q, q.detach(), q.detach())
+    with pytest.raises(NotImplementedError, match="fused_attention .K3. is forward-only"):
+        out.sum().backward()
+    assert tattn.fused_attention.launches == 0
 
 
 @pytest.mark.parametrize("impl", ["einsum", "pallas"])

@@ -49,6 +49,32 @@ def test_attention_kernel_backward_raises(cuda_device):
         out.sum().backward()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 12, 192, 64), (3, 2, 63, 32), (1, 1, 1, 128), (2, 3, 200, 128)])
+def test_fused_attention_kernel_matches_plain(cuda_device, dtype, shape):
+    """K3 (one block per batch row, looping over the heads) against the plain
+    version it shares with K1, at K1's tolerance."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(*shape, device=cuda_device, generator=g, dtype=dtype) for _ in range(3))
+    before = (tattn.attention.launches, tattn.fused_attention.launches)
+    got = tattn.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (tattn.attention.launches, tattn.fused_attention.launches) == (before[0], before[1] + 1)
+    want = tattn.attention_reference(q, k, v)
+    err = (got.float() - want.float()).abs()
+    tol = 2e-5 if dtype == torch.float32 else 2**-7 * want.float().abs().clamp(min=1.0)
+    assert bool((err <= tol).all()), err.max().item()
+
+
+@pytest.mark.cuda
+def test_fused_attention_kernel_backward_raises(cuda_device):
+    q = torch.randn(1, 2, 16, 32, device=cuda_device, requires_grad=True)
+    out = tattn.fused_attention(q, q.detach(), q.detach())
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()
+
+
 def _check_k2(got, want):
     # Each operation rounded once on both sides: mask and zbuf bit for bit.
     assert torch.equal(got.mask, want.mask)

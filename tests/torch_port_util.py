@@ -21,12 +21,22 @@ from whmr_tpu_torch.utils.convert import state_dict_from_flax
 
 @pytest.fixture(scope="module", autouse=True)
 def release_memory():
-    """After each port test module, hand the heap its torch tensors and JAX
-    compiles freed back to the OS. The tier-1 run's xdist workers share one
-    machine's memory and each runs many modules; freed glibc heap would
-    otherwise stay resident (about 1 GB after the WHMR parity modules).
-    Test modules activate it by importing it."""
+    """Keep each port test module a light neighbour of the other xdist
+    workers of the tier-1 run, which share one machine's cores and memory.
+    Test modules activate it by importing it.
+
+    - torch runs on one intra-op thread during the module (restored after):
+      with six workers on 8 cores, torch's 8 OpenMP threads a worker wait on
+      each other at every small op (a trainer test took 562 s under such
+      load on 8 threads and 17 s on one).
+    - After the module, JAX's compiled executables are dropped and the heap
+      the module freed goes back to the OS; freed glibc heap would otherwise
+      stay resident (about 1 GB after the WHMR parity modules)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
+    jax.clear_caches()
     gc.collect()
     try:
         ctypes.CDLL("libc.so.6").malloc_trim(0)

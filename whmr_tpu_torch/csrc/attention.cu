@@ -1,6 +1,11 @@
-// K1: fused softmax self-attention for short sequences, forward only.
+// K1 and K3: fused softmax self-attention for short sequences, forward only.
 //
-// Replaces the TPU kernel `fused_attention_heads` of
+// K3 (`attention_batch_kernel`, below K1) replaces the TPU kernel
+// `fused_attention` of whmr_tpu/ops/attention_pallas.py:108 (body `_kernel`
+// :43, pallas_call :123): the same function with one program per batch row
+// that loops over all H heads. Its notes follow K1's launch code.
+//
+// K1 (`attention_kernel`) replaces the TPU kernel `fused_attention_heads` of
 // whmr_tpu/ops/attention_pallas.py:79 (body `_kernel_heads` :61, pallas_call
 // :98): o = softmax((q * s) k^T) v with s = 1/sqrt(D), per (batch, head), no
 // mask, no dropout, q/k/v/o (B, H, N, D) in one dtype (fp32 or bf16).
@@ -40,6 +45,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 64;
 constexpr int kMaxD = 128;
 constexpr int kDPerLane = kMaxD / 32;
+// K3: one block per batch row has only B blocks, so it takes more warps.
+constexpr int kBatchWarps = 16;
+constexpr int kBatchThreads = kBatchWarps * 32;
 
 template <typename T>
 struct Cvt;
@@ -71,42 +79,33 @@ __host__ __device__ inline size_t kv_bytes(int n, int d, int esize) {
 
 // K (N x k_stride) and V (N x D) in the input dtype, then per warp one fp32
 // score row (N) and one fp32 scaled query row (D).
-__host__ __device__ inline size_t smem_bytes(int n, int d, int esize) {
-  return kv_bytes(n, d, esize) + (size_t)kWarps * (size_t)(n + d) * sizeof(float);
+__host__ __device__ inline size_t smem_bytes(int n, int d, int esize, int warps) {
+  return kv_bytes(n, d, esize) + (size_t)warps * (size_t)(n + d) * sizeof(float);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int N,
-                 int D, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ks = k_stride(D, (int)sizeof(T));
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + (size_t)N * ks;
-  float* p_all = reinterpret_cast<float*>(smem + kv_bytes(N, D, (int)sizeof(T)));
-  float* q_all = p_all + (size_t)kWarps * N;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t head = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)N * D;
-  const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
-  T* oh = o + head;
-
-  for (int i = threadIdx.x; i < N * D; i += kThreads) {
+// Stages K (rows padded to k_stride) and V of one head in shared memory.
+template <typename T, int Threads>
+__device__ inline void stage_kv(const T* __restrict__ kh, const T* __restrict__ vh,
+                                T* k_s, T* v_s, int ks, int N, int D) {
+  for (int i = threadIdx.x; i < N * D; i += Threads) {
     const int j = i / D;
     const int c = i - j * D;
     k_s[(size_t)j * ks + c] = kh[i];
     v_s[i] = vh[i];
   }
-  __syncthreads();
+}
 
-  float* p = p_all + (size_t)warp * N;
-  float* qr = q_all + (size_t)warp * D;
-  const int row_end = min(N, (int)(blockIdx.x + 1) * kRowsPerBlock);
-  for (int r = blockIdx.x * kRowsPerBlock + warp; r < row_end; r += kWarps) {
+// One warp computes the query rows row0, row0 + row_step, ... < row_end of
+// one head whose K and V are staged in shared memory. p (N floats) and qr
+// (D floats) are the warp's own scratch rows.
+template <typename T>
+__device__ inline void attend_rows(const T* __restrict__ qh, const T* k_s,
+                                   const T* v_s, T* __restrict__ oh, int ks,
+                                   int N, int D, float scale, float* p,
+                                   float* qr, int row0, int row_step,
+                                   int row_end) {
+  const int lane = threadIdx.x % 32;
+  for (int r = row0; r < row_end; r += row_step) {
     for (int c = lane; c < D; c += 32) {
       qr[c] = Cvt<T>::to_f(qh[(size_t)r * D + c]) * scale;
     }
@@ -162,14 +161,84 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int H, int N,
+                 int D, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ks = k_stride(D, (int)sizeof(T));
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + (size_t)N * ks;
+  float* p_all = reinterpret_cast<float*>(smem + kv_bytes(N, D, (int)sizeof(T)));
+  float* q_all = p_all + (size_t)kWarps * N;
+
+  const int warp = threadIdx.x / 32;
+  const size_t head = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)N * D;
+  stage_kv<T, kThreads>(k + head, v + head, k_s, v_s, ks, N, D);
+  __syncthreads();
+
+  const int row_end = min(N, (int)(blockIdx.x + 1) * kRowsPerBlock);
+  attend_rows<T>(q + head, k_s, v_s, o + head, ks, N, D, scale,
+                 p_all + (size_t)warp * N, q_all + (size_t)warp * D,
+                 blockIdx.x * kRowsPerBlock + warp, kWarps, row_end);
+}
+
+template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int N, int D, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(N, D, (int)sizeof(T));
+  const size_t smem = smem_bytes(N, D, (int)sizeof(T), kWarps);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
   attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, N, D, scale);
+  return (int)cudaGetLastError();
+}
+
+// K3: one block per batch row loops over the H heads, as the TPU kernel's
+// one program per batch row does (attention_pallas.py:43-58). The heads are
+// staged one at a time into the same shared-memory buffer: K and V of head
+// h (at (192, 64): 49.9 KB in bf16, 99.1 KB in fp32, above the 48 KB
+// default, so the launch raises the block's limit), a barrier, the block's
+// kBatchWarps warps take the N query rows of the head in turn, and a barrier
+// before head h + 1 overwrites the buffer. Numerics are K1's, step for step
+// (attend_rows). It launches only B blocks (48 at the ViT-B batch, on 132
+// SMs) and does not overlap staging with compute, so it is expected to be
+// slower than K1; its bound is K1's, since it does the same work.
+template <typename T>
+__global__ void __launch_bounds__(kBatchThreads)
+attention_batch_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int H,
+                       int N, int D, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ks = k_stride(D, (int)sizeof(T));
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + (size_t)N * ks;
+  float* p_all = reinterpret_cast<float*>(smem + kv_bytes(N, D, (int)sizeof(T)));
+  float* q_all = p_all + (size_t)kBatchWarps * N;
+
+  const int warp = threadIdx.x / 32;
+  for (int h = 0; h < H; ++h) {
+    const size_t head = ((size_t)blockIdx.x * H + h) * (size_t)N * D;
+    if (h > 0) __syncthreads();  // every warp is done with head h - 1
+    stage_kv<T, kBatchThreads>(k + head, v + head, k_s, v_s, ks, N, D);
+    __syncthreads();
+    attend_rows<T>(q + head, k_s, v_s, o + head, ks, N, D, scale,
+                   p_all + (size_t)warp * N, q_all + (size_t)warp * D, warp,
+                   kBatchWarps, N);
+  }
+}
+
+template <typename T>
+int launch_batch(const void* q, const void* k, const void* v, void* o, int B,
+                 int H, int N, int D, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(N, D, (int)sizeof(T), kBatchWarps);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_batch_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_batch_kernel<T><<<B, kBatchThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), H, N, D, scale);
   return (int)cudaGetLastError();
@@ -181,8 +250,9 @@ extern "C" {
 
 // Dynamic shared memory one block needs; the wrapper refuses shapes above
 // the card's per-block limit before it launches.
-size_t whmr_attention_smem_bytes(int n, int d, int esize) {
-  return smem_bytes(n, d, esize);
+// per_batch selects K3's block (one per batch row), else K1's.
+size_t whmr_attention_smem_bytes(int n, int d, int esize, int per_batch) {
+  return smem_bytes(n, d, esize, per_batch ? kBatchWarps : kWarps);
 }
 
 // q, k, v, o: contiguous (B, H, N, D); is_bf16 selects bf16, else fp32.
@@ -194,6 +264,16 @@ int whmr_attention_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
   return launch<float>(q, k, v, o, B, H, N, D, scale, s);
+}
+
+// K3: the same contract as whmr_attention_fwd, one block per batch row.
+int whmr_attention_batch_fwd(const void* q, const void* k, const void* v,
+                             void* o, int B, int H, int N, int D, float scale,
+                             int is_bf16, void* stream) {
+  if (D < 1 || D > kMaxD || N < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_batch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
+  return launch_batch<float>(q, k, v, o, B, H, N, D, scale, s);
 }
 
 }  // extern "C"

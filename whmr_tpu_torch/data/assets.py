@@ -25,7 +25,7 @@ import functools
 import os
 import pickle
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -381,3 +381,13 @@ def synthetic_smpl_assets(seed: int = 0) -> SMPLAssets:
         mean_cam=np.array([0.9, 0.0, 0.0], np.float32),
         gender="neutral",
     )
+
+
+def get_assets(data_dir: Optional[str] = None, gender: str = "neutral") -> SMPLAssets:
+    """Real assets when a data dir (or $WHMR_DATA_DIR) holds them, else synthetic."""
+    data_dir = data_dir or os.environ.get("WHMR_DATA_DIR", "")
+    if data_dir and os.path.exists(
+        os.path.join(data_dir, "smpl", f"SMPL_{gender.upper()}.pkl")
+    ):
+        return load_smpl_assets(data_dir, gender)
+    return synthetic_smpl_assets()

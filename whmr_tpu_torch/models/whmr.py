@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from whmr_tpu_torch.config import WHMRConfig
-from whmr_tpu_torch.data.assets import synthetic_smpl_assets
+from whmr_tpu_torch.data.assets import SMPLAssets, synthetic_smpl_assets
 from whmr_tpu_torch.models.heads import (
     DepthHead,
     IUVHead,
@@ -295,11 +295,12 @@ def init_parameters(model: WHMR, generator: torch.Generator) -> None:
 
 
 def build_model(
-    cfg: WHMRConfig, dtype=torch.bfloat16, device=None, seed: int = 0
+    cfg: WHMRConfig, dtype=torch.bfloat16, device=None, seed: int = 0,
+    assets: Optional[SMPLAssets] = None,
 ) -> Tuple[WHMR, BodyConsts]:
     """The model, in eval mode, with seeded random weights, and its BodyConsts
-    from the synthetic SMPL assets, both on `device`: the card when None,
-    never a silent fall back to the CPU."""
+    from `assets` (the synthetic SMPL assets when None), both on `device`:
+    the card when None, never a silent fall back to the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
@@ -312,5 +313,5 @@ def build_model(
         torch.backends.cudnn.allow_tf32 = False
     model = WHMR(cfg, dtype=dtype)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    consts = body_consts_from_assets(synthetic_smpl_assets(0), device=device)
+    consts = body_consts_from_assets(assets if assets is not None else synthetic_smpl_assets(0), device=device)
     return model.to(device).eval(), consts

@@ -1,16 +1,18 @@
-"""K1: fused multi-head self-attention, a hand-written CUDA kernel for Hopper.
+"""K1 and K3: fused multi-head self-attention, hand-written CUDA kernels for Hopper.
 
-Replaces `fused_attention_heads` of whmr_tpu/ops/attention_pallas.py:79 (the
-Pallas kernel reached by `vit.attn_impl="pallas"`). The kernel is
-`csrc/attention.cu`; its header states its bound on an H100 and what the
-design does about it. `attention_reference` below is the plain PyTorch
-version of exactly the same steps: the CPU tests use it, and chip_smoke.py
-holds the kernel against it on the card.
+`attention` (K1) replaces `fused_attention_heads` of
+whmr_tpu/ops/attention_pallas.py:79 (the Pallas kernel reached by
+`vit.attn_impl="pallas"`); `fused_attention` (K3) replaces `fused_attention`
+of attention_pallas.py:108, the same function with one program per batch row.
+Both kernels are in `csrc/attention.cu`, whose comments state their bound on
+an H100 and what each design does about it. `attention_reference` below is
+the plain PyTorch version of exactly the same steps, for both: the CPU tests
+use it, and chip_smoke.py holds each kernel against it on the card.
 
-`attention(q, k, v)` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors; it never falls back from one to the
-other. It is forward-only: whmr_tpu defines no VJP for its kernel, and the
-backward here raises rather than dropping gradients.
+Each wrapper launches its kernel for CUDA tensors and takes the plain version
+only for CPU tensors; it never falls back from one to the other. Both are
+forward-only: whmr_tpu defines no VJP for its kernels, and the backward here
+raises rather than dropping gradients.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.whmr_attention_fwd.restype = ctypes.c_int
-        lib.whmr_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.whmr_attention_batch_fwd.argtypes = lib.whmr_attention_fwd.argtypes
+        lib.whmr_attention_batch_fwd.restype = ctypes.c_int
+        lib.whmr_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.whmr_attention_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
@@ -78,11 +82,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("attention takes contiguous q, k, v")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool = False) -> torch.Tensor:
+    """K1, or K3 with `per_batch` (one block per batch row)."""
     b, h, n, d = q.shape
     lib = _kernel_lib()
     esize = q.element_size()
-    smem = lib.whmr_attention_smem_bytes(n, d, esize)
+    smem = lib.whmr_attention_smem_bytes(n, d, esize, int(per_batch))
     if smem > _MAX_SMEM:
         raise ValueError(
             f"attention: N={n}, D={d} in {q.dtype} needs {smem} B of shared memory, "
@@ -91,29 +96,36 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.whmr_attention_fwd(
+        fwd = lib.whmr_attention_batch_fwd if per_batch else lib.whmr_attention_fwd
+        err = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b, h, n, d, _scale(d), int(q.dtype == torch.bfloat16), stream,
         )
+    name = "fused_attention (K3)" if per_batch else "attention (K1)"
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    attention.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    if per_batch:
+        fused_attention.launches += 1
+    else:
+        attention.launches += 1
     return o
 
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, per_batch):
+        ctx.per_batch = per_batch
         if q.device.type == "cuda":
-            return _launch(q, k, v)
+            return _launch(q, k, v, per_batch)
         if q.device.type == "cpu":
             return attention_reference(q, k, v)
         raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
 
     @staticmethod
     def backward(ctx, grad):
+        name = "fused_attention (K3)" if ctx.per_batch else "attention (K1)"
         raise NotImplementedError(
-            "attention (K1) is forward-only: whmr_tpu defines no VJP for its Pallas kernel, "
+            f"{name} is forward-only: whmr_tpu defines no VJP for its Pallas kernel, "
             'and its train step runs vit.attn_impl="einsum"'
         )
 
@@ -125,7 +137,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     `attention.launches`); CPU tensors through `attention_reference`.
     """
     _check(q, k, v)
-    return _Attention.apply(q, k, v)
+    return _Attention.apply(q, k, v, False)
 
 
 attention.launches = 0
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K3: the same function as `attention`, with the TPU kernel's launch
+    shape of one block per batch row looping over the H heads.
+
+    CUDA tensors go through K3 (counted in `fused_attention.launches`); CPU
+    tensors through `attention_reference`, which is K3's plain version too,
+    since K3 computes K1's function with K1's numerics step for step.
+    """
+    _check(q, k, v)
+    return _Attention.apply(q, k, v, True)
+
+
+fused_attention.launches = 0

@@ -152,3 +152,31 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
         for angle in ("vfov", "pitch", "roll"):
             linear(f"cam_model.fc_{angle}", cam[f"fc_{angle}"])
     return sd
+
+
+def merge_trees(base: dict, update: dict, path=""):
+    """Recursively merge checkpoint leaves over the model's tree, keeping
+    the model's leaf where the shapes differ. Returns (merged, report) with
+    report = {"matched": count, "mismatched": [...], "extra": [...]}: keys
+    whose shapes differ, and keys the model does not have (the shape-checked
+    merge of whmr_tpu/utils/convert_cli.py)."""
+    merged = dict(base)
+    report = {"matched": 0, "mismatched": [], "extra": []}
+    for k, v in update.items():
+        if k not in base:
+            report["extra"].append(f"{path}/{k}")
+            continue
+        if isinstance(v, dict):
+            merged[k], sub = merge_trees(base[k], v, f"{path}/{k}")
+            report["matched"] += sub["matched"]
+            report["mismatched"] += sub["mismatched"]
+            report["extra"] += sub["extra"]
+        else:
+            if tuple(getattr(base[k], "shape", ())) != tuple(v.shape):
+                report["mismatched"].append(
+                    f"{path}/{k}: ckpt {tuple(v.shape)} vs model {tuple(getattr(base[k], 'shape', ()))}"
+                )
+            else:
+                merged[k] = v
+                report["matched"] += 1
+    return merged, report
