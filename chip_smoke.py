@@ -6,22 +6,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles every CUDA kernel from the sources in this checkout into
    build/, one nvcc for each source, all started together; prints ptxas's
-   registers and spills.
+   registers and spill bytes for each kernel instantiation, and fails on a
+   spill in the tensor-core ("mma") variant of K1 and K3.
 3. Kernels: holds each kernel against its plain PyTorch version on the
-   card. K1 (attention) and K3 (fused_attention, the same function with one
-   block per batch row) at the forward's shapes and a ragged one, in bf16
-   and fp32, at one bf16 ulp. K2 (rasterizer) at the train step's render
-   (B=64 posed bodies with their least-squares GT cameras, the 13,776-face
-   topology, the 128x96 window at origin (16, 0)), on a ragged case (ties
+   card. K1 (attention) and K3 (fused_attention, the same function in K3's
+   launch shape) at the forward's shapes, ViT-H's head (D = 80), the
+   tensor-core edge N = 256, N = 300 and D = 20 (bf16 on CUDA cores) and a
+   ragged shape, in bf16 and fp32, at one bf16 ulp; checks that every bf16
+   launch at N <= 256 and D % 8 == 0 took the tensor-core variant and no
+   other did, and that K3's bf16 output equals K1's bit for bit. K2
+   (rasterizer) at the train step's render (B=64 posed bodies with their
+   least-squares GT cameras, the 13,776-face topology, the 128x96 window at
+   origin (16, 0)), on a ragged case (ties
    inside and across chunks, padding faces, sides that are no multiple of
    the tile) and with the largest GT camera, which covers every tile.
 4. Forward path: the full-width WHMR forward (ViT-B, 3 MAF steps, CamCalib,
    world SMPL) in bf16 with vit.attn_impl="pallas", seeded random weights and
    synthetic SMPL assets: B=16 crops without a frame and B=48 crops with one
    600x600 CamCalib frame. Counts every kernel's launches over exactly those
-   two forwards, checks shapes and finiteness, and compares the vertices and
-   the ViT feature map (which the attention drives directly) with the same
-   weights under attn_impl="einsum" and in fp32.
+   two forwards (all 24 of K1's on tensor cores), checks shapes and
+   finiteness, and compares the vertices and the ViT feature map (which
+   the attention drives directly) with the same weights under
+   attn_impl="einsum" and in fp32.
 5. Train path: 3 steps of the full-width train step at WHMRConfig()'s
    defaults (ViT-B with drop path 0.3, 3 MAF steps, stage 2, the GT IUV
    render, Adam at 5e-5; bf16 compute, fp32 parameters; B=64, keypoints
@@ -34,7 +40,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with the same weights and generator seed.
 6. Times (CUDA events / synchronized host clock, after warm-up): each kernel
    beside its bound, its plain version and the PyTorch library call for the
-   same function (none for K2); forward crops/s at B=48 with "pallas" and
+   same function (none for K2), K1 and K3 also in their CUDA-core variant
+   at the same bf16 shape; forward crops/s at B=48 with "pallas" and
    with "einsum"; train step ms and crops/s at B=64; peak memory.
 7. Trainer path: `Trainer.fit` at the same width, 2 epochs x 3 steps of
    B=64 fed by the port's BatchLoader and device_prefetch from an in-memory
@@ -94,6 +101,9 @@ from whmr_tpu_torch.utils.testing import (
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
+# torch.cuda._sleep spins for this many clock cycles a second at the H100's
+# top SM clock (1.98 GHz); at a lower clock the hold only lasts longer.
+SLEEP_CYCLES_PER_S = 1.98e9
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNELS = ("attention", "rasterizer")
 # fp32 operations of K2's coverage-and-depth test of one (pixel, face) pair:
@@ -116,15 +126,22 @@ LOSS_RTOL = 5e-4
 
 # Each kernel wrapper's launch count, by the name the kernels line gives it.
 WRAPPERS = {"attention": k1.attention, "fused_attention": k1.fused_attention, "rasterizer": k2.rasterize_kernel}
+# The attention wrappers also count their tensor-core launches.
+MMA_WRAPPERS = {"attention": k1.attention, "fused_attention": k1.fused_attention}
 
 
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in MMA_WRAPPERS.values():
+        fn.mma_launches = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """{name: launches} and {name + ".mma": tensor-core launches}."""
+    out = {name: fn.launches for name, fn in WRAPPERS.items()}
+    out.update({f"{name}.mma": fn.mma_launches for name, fn in MMA_WRAPPERS.items()})
+    return out
 
 
 class SmokeError(RuntimeError):
@@ -141,17 +158,39 @@ def log(msg):
 
 
 def cuda_ms(fn, iters, warmup=3):
-    """Mean device milliseconds per call of `fn`, by CUDA events."""
+    """Mean device milliseconds per call of `fn`, by CUDA events around
+    `iters` calls. A sleep kernel holds the stream first, for longer than
+    the host takes to enqueue the calls, so that the events time the
+    device's work and not the host's gaps between launches (K1 and K3 take
+    less time on the card than their wrappers take on the host)."""
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = min(0.2, 1.5 * iters * (time.perf_counter() - t0) + 1e-3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=200):
+    """Host microseconds a call of `fn` takes to enqueue its work (the
+    device keeps up, so the queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def attention_bound_ms(shape, dtype):
@@ -201,24 +240,42 @@ def rasterizer_bound_ms(tables, bbox, resolution, tile_hw, origin, chunk):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), pairs
 
 
+# K1's and K3's tensor-core kernels, one instantiation each for 64, 128,
+# 192 and 256 padded keys.
+MMA_INSTANTIATIONS = 8
+
+
 def phase_build():
+    """Builds every kernel (even if build/ holds it, so that ptxas reports);
+    fails on a spill in a tensor-core kernel."""
     t0 = time.perf_counter()
-    texts = cuda_build.build_all(KERNELS)
+    texts = cuda_build.build_all(KERNELS, force=True)
     log(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s (in parallel)")
+    mma = 0
     for name, text in texts.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
+        for fn, r in cuda_build.ptxas_report(text).items():
+            spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
+            log(f"  {name}: {fn}: {r.get('registers')} registers, {r.get('spill_stores')} bytes spill stores, "
+                f"{r.get('spill_loads')} bytes spill loads")
+            if "mma_kernel" in fn:
+                mma += 1
+                check(spills == 0, f"the tensor-core kernel {fn} spills {spills} bytes")
+    check(mma == MMA_INSTANTIATIONS, f"ptxas reported {mma} tensor-core kernels, want {MMA_INSTANTIATIONS}")
 
 
 def phase_kernels():
-    """K1 against its plain version; returns {(shape, dtype): max_abs_err}."""
+    """K1 and K3 against their plain version; returns {(shape, dtype): max_abs_err}."""
     errs = {}
     g = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(16, 12, 192, 64), (48, 12, 192, 64), (3, 2, 63, 32)]
+    # The forward's heads at B=16 and 48, ViT-H's (D = 80), a ragged one and
+    # D = 20 (no multiple of 8: CUDA cores in bf16); in bf16 also the
+    # tensor-core edge N = 256 and N = 300, above it. (fp32 at (256, 128)
+    # needs more shared memory than a block has.)
+    shapes = [(16, 12, 192, 64), (48, 12, 192, 64), (16, 16, 192, 80), (3, 2, 63, 32), (3, 2, 50, 20)]
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in shapes:
+        for shape in shapes + ([(2, 4, 256, 128), (2, 2, 300, 64)] if dtype == torch.bfloat16 else []):
             q, k, v = (torch.randn(*shape, device="cuda", generator=g, dtype=dtype) for _ in range(3))
+            reset_launches()
             got = k1.attention(q, k, v)
             torch.cuda.synchronize()
             want = k1.attention_reference(q, k, v)
@@ -237,6 +294,14 @@ def phase_kernels():
             log(f"K3 {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err3.max().item():.3g} "
                 f"(tolerance {tol.max().item():.3g})")
             check(bool((err3 <= tol).all()), f"K3 disagrees with its plain version at {shape} {dtype}")
+            mma = int(k1._variant(shape, dtype) == "mma")
+            n = read_launches()
+            check((n["attention"], n["attention.mma"], n["fused_attention"], n["fused_attention.mma"])
+                  == (1, mma, 1, mma), f"{shape} {dtype}: launches {n}, want {mma} on tensor cores each")
+            if dtype == torch.bfloat16:
+                check(torch.equal(got3, got), f"K3's bf16 output differs from K1's at {shape}")
+    log("K3 equals K1 bit for bit at every bf16 shape; bf16 at N <= 256 and D % 8 == 0 ran on tensor cores, "
+        "the rest did not")
     for name, fn in (("K1", k1.attention), ("K3", k1.fused_attention)):
         q = torch.randn(1, 2, 16, 32, device="cuda", requires_grad=True)
         try:
@@ -286,6 +351,7 @@ def phase_main_path():
     launches = read_launches()
     log(f"main path: {len(runs)} forwards, launches {launches}")
     check(launches["attention"] == 12 * len(runs), f"K1 launched {launches['attention']} times, want 12 a forward")
+    check(launches["attention.mma"] == launches["attention"], "a K1 launch of the forward missed the tensor cores")
     check(launches["fused_attention"] == 0 and launches["rasterizer"] == 0, "K2 or K3 launched in the forward")
     for (b, frame), out in outs.items():
         for name, v in zip(("verts", "global_verts"), _verts(out)):
@@ -327,43 +393,39 @@ def phase_times(cfg, model, consts, inputs, launches, errs):
         shape = (b, 12, 192, 64)
         q, k, v = (torch.randn(*shape, device="cuda", generator=g, dtype=torch.bfloat16) for _ in range(3))
         ms = cuda_ms(lambda: k1.attention(q, k, v), 200)
+        ms3 = cuda_ms(lambda: k1.fused_attention(q, k, v), 200)
+        # The CUDA-core variant (the first design) at the same shape, for comparison.
+        rows_ms = cuda_ms(lambda: k1._launch(q, k, v, False, "rows"), 50)
+        rows3_ms = cuda_ms(lambda: k1._launch(q, k, v, True, "rows"), 20)
         plain_ms = cuda_ms(lambda: k1.attention_reference(q, k, v), 50)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 200)
         bound_ms, bound_by = attention_bound_ms(shape, torch.bfloat16)
-        log(f"K1 B={b} bf16: {ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us ({bound_by}); "
-            f"plain {plain_ms * 1e3:.1f} us; scaled_dot_product_attention {library_ms * 1e3:.1f} us")
+        hosts = (host_us(lambda: k1.attention(q, k, v)), host_us(lambda: k1.fused_attention(q, k, v)))
+        for name, t, rows_t, host in (("K1", ms, rows_ms, hosts[0]), ("K3", ms3, rows3_ms, hosts[1])):
+            log(f"{name} B={b} bf16: {t * 1e3:.2f} us ({bound_ms / t:.1%} of the bound), CUDA-core variant "
+                f"{rows_t * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us ({bound_by}); plain {plain_ms * 1e3:.1f} us; "
+                f"scaled_dot_product_attention {library_ms * 1e3:.2f} us; the wrapper's host time "
+                f"{host:.1f} us a call")
         if b == 48:
-            ms3 = cuda_ms(lambda: k1.fused_attention(q, k, v), 200)
-            log(f"K3 B={b} bf16: {ms3 * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us ({bound_by}); "
-                f"plain {plain_ms * 1e3:.1f} us; scaled_dot_product_attention {library_ms * 1e3:.1f} us")
-            kernels.append({
-                "name": "fused_attention",
-                "route": "cuda",
-                "source": "whmr_tpu_torch/csrc/attention.cu",
-                "replaces": "whmr_tpu/ops/attention_pallas.py:108",
-                # no path calls K3: main() adds the train and fit paths'
-                # counts to the forwards', all checked to be 0
-                "launches": launches["fused_attention"],
-                "max_abs_err": errs[("K3", shape, torch.bfloat16)],
-                "ms": ms3,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
-            })
-            kernels.insert(0, {
-                "name": "attention",
-                "route": "cuda",
-                "source": "whmr_tpu_torch/csrc/attention.cu",
-                "replaces": "whmr_tpu/ops/attention_pallas.py:79",
-                "launches": launches["attention"],
-                "max_abs_err": errs[(shape, torch.bfloat16)],
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
-            })
+            for name, replaces, t in (("attention", "whmr_tpu/ops/attention_pallas.py:79", ms),
+                                      ("fused_attention", "whmr_tpu/ops/attention_pallas.py:108", ms3)):
+                kernels.append({
+                    "name": name,
+                    "route": "cuda",
+                    "source": "whmr_tpu_torch/csrc/attention.cu",
+                    "replaces": replaces,
+                    # K3 runs on no path: main() adds the train and fit
+                    # paths' counts to the forwards', all checked to be 0
+                    "launches": launches[name],
+                    "mma_launches": launches[f"{name}.mma"],
+                    "max_abs_err": errs[(shape, torch.bfloat16) if name == "attention" else ("K3", shape, torch.bfloat16)],
+                    "ms": t,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "library_ms": library_ms,
+                    "share_of_bound": bound_ms / t,
+                })
 
     einsum_model = _twin(cfg, model, torch.bfloat16, "einsum")
     b48 = _inputs(cfg, 48, False, "cuda")
@@ -591,12 +653,14 @@ def phase_train_times(cfg, model, consts, rc, batch, state, launches, k2_err):
         "source": "whmr_tpu_torch/csrc/rasterizer.cu",
         "replaces": "whmr_tpu/ops/rasterizer_pallas.py:255",
         "launches": launches["rasterizer"],
+        "mma_launches": None,  # K2 has no tensor-core variant
         "max_abs_err": k2_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "share_of_bound": bound_ms / ms,
     }
 
 
@@ -835,6 +899,7 @@ def main():
     # the fit's, each read over its run (and each checked to be 0).
     k3 = next(k for k in kernels if k["name"] == "fused_attention")
     k3["launches"] += train_launches["fused_attention"] + fit_launches["fused_attention"]
+    k3["mma_launches"] += train_launches["fused_attention.mma"] + fit_launches["fused_attention.mma"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

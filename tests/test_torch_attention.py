@@ -7,6 +7,8 @@ plain version on a card by tests/test_torch_kernels_cuda.py and
 chip_smoke.py.
 """
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +19,13 @@ from whmr_tpu.models import layers as jlayers
 from whmr_tpu.ops.attention_pallas import fused_attention, fused_attention_heads
 from whmr_tpu_torch.models import layers as tlayers
 from whmr_tpu_torch.ops import attention as tattn
+from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.utils.convert import linear_from_flax
 
 from torch_port_util import release_memory, n, t  # noqa: F401 (autouse fixture)
 
-SHAPES = [(2, 4, 192, 64), (2, 4, 64, 32)]
+# ViT-B's head width, a narrow one, and ViT-H's 80 (not a power of two).
+SHAPES = [(2, 4, 192, 64), (2, 4, 64, 32), (2, 4, 192, 80)]
 
 
 def _qkv(shape, seed=0):
@@ -123,3 +127,82 @@ def test_unported_impls_raise(impl):
     with pytest.raises(ValueError, match="not ported yet" if impl != "nope" else "unknown"):
         tlayers.Attention(64, 4, impl=impl)
 
+
+
+@pytest.mark.parametrize("shape, dtype, variant, k1_smem, k3_smem", [
+    # bf16 at N <= 256: tensor cores. 128-byte rows per 64 columns of D,
+    # plus 1024 bytes of alignment: K1 stages its 64 query rows, and K and V
+    # padded to the kernel's key count (64, 128, 192 or 256); K3 Q, K and V
+    # of an item at that count, twice when two items fit in a block.
+    ((48, 12, 192, 64), torch.bfloat16, "mma", (64 + 2 * 192) * 128 + 1024, 2 * 3 * 192 * 128 + 1024),
+    ((2, 16, 192, 80), torch.bfloat16, "mma", (64 + 2 * 192) * 256 + 1024, 3 * 192 * 256 + 1024),
+    ((2, 3, 200, 128), torch.bfloat16, "mma", (64 + 2 * 256) * 256 + 1024, 3 * 256 * 256 + 1024),
+    ((1, 1, 1, 8), torch.bfloat16, "mma", (64 + 2 * 64) * 128 + 1024, 2 * 3 * 64 * 128 + 1024),
+    ((3, 2, 63, 32), torch.bfloat16, "mma", (64 + 2 * 64) * 128 + 1024, 2 * 3 * 64 * 128 + 1024),
+    # bf16 above N = 256 or with D % 8 != 0 (TMA reads 16-byte rows), and
+    # fp32: CUDA cores. K (rows padded to an odd
+    # number of words) and V, rounded up to 16 B, then an fp32 score and
+    # query row a warp.
+    ((1, 2, 257, 64), torch.bfloat16, "rows", 66832 + 8 * 321 * 4, 66832 + 16 * 321 * 4),
+    ((2, 3, 50, 20), torch.bfloat16, "rows", 4208 + 8 * 70 * 4, 4208 + 16 * 70 * 4),
+    ((48, 12, 192, 64), torch.float32, "rows", 192 * (65 + 64) * 4 + 8 * 256 * 4,
+     192 * (65 + 64) * 4 + 16 * 256 * 4),
+])
+def test_variant_choice_and_smem(shape, dtype, variant, k1_smem, k3_smem):
+    """The wrappers pick the kernel variant from dtype and shape alone."""
+    assert tattn._variant(shape, dtype) == variant
+    assert tattn._smem_bytes(shape, dtype, False) == k1_smem
+    assert tattn._smem_bytes(shape, dtype, True) == k3_smem
+    assert max(k1_smem, k3_smem) <= tattn._MAX_SMEM
+
+
+def _rn32(v: Fraction) -> Fraction:
+    """v rounded to the nearest fp32 value, ties to even (normal range)."""
+    if v == 0:
+        return Fraction(0)
+    a = abs(v)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    e += (Fraction(2) ** (e + 1) <= a) - (Fraction(2) ** e > a)
+    scaled = a / Fraction(2) ** (e - 23)
+    m = scaled.numerator // scaled.denominator
+    rest = scaled - m
+    m += rest > Fraction(1, 2) or (rest == Fraction(1, 2) and m % 2 == 1)
+    return (1 if v > 0 else -1) * m * Fraction(2) ** (e - 23)
+
+
+def test_kernel_division_is_correctly_rounded():
+    """The tensor-core kernels divide e by the row sum l as RN(q + RN(e - q l)
+    r) with r = RN(1 / l) and q = RN(e r) (two FMAs, csrc/attention.cu
+    `div_rn`). In exact arithmetic that equals RN(e / l), the IEEE quotient
+    the plain version takes, for every e in [0, 1] and l in [1, 256] whose
+    quotient is 0 or normal: the kernel's P is the plain version's."""
+    rng = np.random.RandomState(0)
+    n = 6000
+    e = np.exp2(-rng.uniform(0, 118, n)).astype(np.float32)
+    l = rng.uniform(1, 256, n).astype(np.float32)
+    # Divisors with all-ones mantissas, powers of two, e = 1 (the row max),
+    # e just below 1, and e = 0 (a pad key).
+    l[:300] = np.nextafter(np.float32(2.0) ** rng.randint(1, 9, 300), np.float32(0))
+    l[300:400] = np.float32(2.0) ** rng.randint(0, 9, 100)
+    e[400:500], e[500:600], e[600:620] = 1.0, np.nextafter(np.float32(1), np.float32(0)), 0.0
+    for x, y in zip(e.tolist(), l.tolist()):
+        x, y = Fraction(x), Fraction(y)
+        r = _rn32(1 / y)
+        q = _rn32(x * r)
+        assert _rn32(q + _rn32(x - q * y) * r) == _rn32(x / y), (x, y)
+
+
+def test_ptxas_report():
+    text = """ptxas info    : Compiling entry function '_Z20attention_mma_kernelILi192EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z20attention_mma_kernelILi192EEvv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6rows_kv' for 'sm_90a'
+ptxas info    : Function properties for _Z6rows_kv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 400 bytes cmem[0]
+"""
+    assert cuda_build.ptxas_report(text) == {
+        "_Z20attention_mma_kernelILi192EEvv": {"registers": 168, "spill_stores": 8, "spill_loads": 4},
+        "_Z6rows_kv": {"registers": 32, "spill_stores": 0, "spill_loads": 0},
+    }

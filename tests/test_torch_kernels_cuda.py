@@ -24,9 +24,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The forward's head (ViT-B), ViT-H's head (D = 80, not a power of 4, so
+# the fp32 scale is not exact in bf16), the tensor-core edge N = 256,
+# ragged shapes, and D = 20 (no multiple of 8) and N = 300, where bf16
+# takes the CUDA-core variant.
+ATTENTION_SHAPES = [
+    (2, 12, 192, 64), (2, 16, 192, 80), (2, 4, 256, 96), (3, 2, 63, 32), (1, 1, 1, 128),
+    (2, 3, 200, 128), (2, 3, 50, 20), (1, 2, 300, 64),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 12, 192, 64), (3, 2, 63, 32), (1, 1, 1, 128)])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES)
 def test_attention_kernel_matches_plain(cuda_device, dtype, shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(*shape, device=cuda_device, generator=g, dtype=dtype) for _ in range(3))
@@ -51,7 +61,7 @@ def test_attention_kernel_backward_raises(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 12, 192, 64), (3, 2, 63, 32), (1, 1, 1, 128), (2, 3, 200, 128)])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES)
 def test_fused_attention_kernel_matches_plain(cuda_device, dtype, shape):
     """K3 (one block per batch row, looping over the heads) against the plain
     version it shares with K1, at K1's tolerance."""
@@ -73,6 +83,74 @@ def test_fused_attention_kernel_backward_raises(cuda_device):
     out = tattn.fused_attention(q, q.detach(), q.detach())
     with pytest.raises(NotImplementedError, match="forward-only"):
         out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 12, 192, 64), (2, 16, 192, 80), (2, 4, 256, 128), (3, 2, 63, 32),
+                                   (1, 2, 300, 64)])
+def test_fused_attention_equals_attention_bf16(cuda_device, shape):
+    """K3 runs K1's device routine on the same staged values, so in bf16 its
+    output equals K1's bit for bit, in both variants."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(*shape, device=cuda_device, generator=g, dtype=torch.bfloat16) for _ in range(3))
+    assert torch.equal(tattn.fused_attention(q, k, v), tattn.attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["attention", "fused_attention"])
+def test_tensor_core_kernels_take_unaligned_inputs(cuda_device, wrapper):
+    """Contiguous inputs 2 bytes off a 16-byte boundary (TMA cannot read
+    them) are copied by the wrapper: the same output, bit for bit, as from
+    aligned copies."""
+    shape = (2, 12, 192, 64)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    numel = int(np.prod(shape))
+    aligned = [torch.randn(*shape, device=cuda_device, generator=g, dtype=torch.bfloat16) for _ in range(3)]
+    shifted = []
+    for x in aligned:
+        buf = torch.empty(numel + 1, device=cuda_device, dtype=torch.bfloat16)
+        buf[1:] = x.reshape(-1)
+        shifted.append(buf[1:].view(shape))
+    assert all(x.is_contiguous() and x.data_ptr() % 16 == 2 for x in shifted)
+    fn = getattr(tattn, wrapper)
+    before = fn.mma_launches
+    got = fn(*shifted)
+    assert fn.mma_launches == before + 1
+    assert torch.equal(got, fn(*aligned))
+    want = tattn.attention_reference(*aligned)
+    assert bool(((got.float() - want.float()).abs() <= 2**-7 * want.float().abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["attention", "fused_attention"])
+def test_tensor_core_launches_counted(cuda_device, wrapper):
+    """bf16 at N <= 256 (D % 8 == 0) launches the tensor-core variant
+    (counted in `.mma_launches` and `.launches`); fp32, and bf16 above N =
+    256 or with D % 8 != 0, launch the CUDA-core variant (`.launches`
+    only)."""
+    fn = getattr(tattn, wrapper)
+    cases = [((2, 3, 256, 64), torch.bfloat16, 1), ((2, 3, 1, 64), torch.bfloat16, 1),
+             ((2, 3, 192, 64), torch.float32, 0), ((2, 3, 257, 64), torch.bfloat16, 0),
+             ((2, 3, 64, 20), torch.bfloat16, 0)]
+    for shape, dtype, mma in cases:
+        x = torch.randn(*shape, device=cuda_device, dtype=dtype)
+        before = (fn.launches, fn.mma_launches)
+        fn(x, x, x)
+        assert (fn.launches, fn.mma_launches) == (before[0] + 1, before[1] + mma), (shape, dtype)
+        assert tattn._variant(shape, dtype) == ("mma" if mma else "rows")
+
+
+@pytest.mark.cuda
+def test_smem_figures_match_the_kernel_source(cuda_device):
+    """The wrapper's shared-memory figures are the ones the launch sets."""
+    lib = tattn._kernel_lib()
+    for shape in ATTENTION_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for per_batch in (False, True):
+                for variant in {"rows", tattn._variant(shape, dtype)}:
+                    want = lib.whmr_attention_smem_bytes(shape[2], shape[3], torch.finfo(dtype).bits // 8,
+                                                         int(per_batch), int(variant == "mma"))
+                    assert tattn._smem_bytes(shape, dtype, per_batch, variant) == want, (shape, dtype, variant)
 
 
 def _check_k2(got, want):

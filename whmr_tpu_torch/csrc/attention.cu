@@ -1,42 +1,90 @@
 // K1 and K3: fused softmax self-attention for short sequences, forward only.
 //
-// K3 (`attention_batch_kernel`, below K1) replaces the TPU kernel
-// `fused_attention` of whmr_tpu/ops/attention_pallas.py:108 (body `_kernel`
-// :43, pallas_call :123): the same function with one program per batch row
-// that loops over all H heads. Its notes follow K1's launch code.
-//
-// K1 (`attention_kernel`) replaces the TPU kernel `fused_attention_heads` of
+// K1 replaces the TPU kernel `fused_attention_heads` of
 // whmr_tpu/ops/attention_pallas.py:79 (body `_kernel_heads` :61, pallas_call
 // :98): o = softmax((q * s) k^T) v with s = 1/sqrt(D), per (batch, head), no
 // mask, no dropout, q/k/v/o (B, H, N, D) in one dtype (fp32 or bf16).
-// Numerics follow the TPU kernel step for step: q is widened to fp32 and
-// scaled before the product, scores and softmax are fp32 with the row max
-// subtracted, P is divided by its row sum and then ROUNDED TO THE INPUT DTYPE
-// before P.V, P.V accumulates in fp32, and the output is rounded once.
+// K3 replaces `fused_attention` of attention_pallas.py:108 (body `_kernel`
+// :43, pallas_call :123): the same function, with the TPU's launch shape of
+// one program per batch row looping over all H heads.
+// Numerics follow the TPU kernel step for step: scores and softmax are fp32
+// with the row max subtracted, P is divided by its row sum and then ROUNDED
+// TO THE INPUT DTYPE before P.V, P.V accumulates in fp32, and the output is
+// rounded once.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the ViT-B shape
 // (B=48, H=12, N=192, D=64, bf16) the kernel must move 4 x 48*12*192*64 x 2 B
 // = 56.6 MB (16.9 us) and do 4*B*H*N*N*D = 5.44 GFLOP (5.5 us), so it is
-// bound by bytes. What the design does about it: q, k, v and o each cross
-// device memory once per block, K and V of the head are staged once in
-// shared memory and reused by every query row of the block, and the N x N
-// scores never leave shared memory. It is the simple first design: one warp
-// per query row on CUDA cores (no wgmma, no TMA yet), so it is expected to sit
-// well above that bound; PERF.md records by how much.
+// bound by bytes. What the design does about it: q, k, v and o cross
+// device memory once (K3), or K and V once per 64 query rows (K1, the
+// re-reads hit L2), copies run on the TMA engine beside the compute, and
+// the N x N scores never leave registers. What holds it above that bound
+// (PERF.md): the softmax's exact expf and division, about 15 CUDA-core
+// instructions a score, which the warps of an SM run in step between
+// their tensor-core products.
 //
-// Layout: grid (ceil(N / kRowsPerBlock), H, B); kWarps warps per block. The
-// block copies K (rows padded so that lanes reading 32 different rows hit 32
-// different banks) and V of its head into shared memory. Each warp then takes
-// one query row at a time: lanes split the N keys for the scores, reduce max
-// and sum with shuffles, and split the D output columns for P.V.
+// Two variants of each kernel, chosen by the wrapper (ops/attention.py) by
+// dtype and shape only:
+//
+// * "mma", bf16 with N <= 256 and D % 8 == 0 (every ViT of the repo has
+//   N = 192 and D = 64 or 80): the
+//   warpgroup routine `attend_tile_mma`, 64 query rows a warpgroup.
+//   - Staging: one thread loads Q, K and V of the head by TMA (tensor maps
+//     from cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint)
+//     into 128-byte-swizzled shared memory, 64 columns a block; Q and K
+//     complete one mbarrier and V another, so the scores and the softmax
+//     run while V lands. The maps' bounds zero the rows past N and columns
+//     past D. TMA needs D % 8 == 0 (16-byte rows) and 16-byte aligned
+//     pointers: the wrapper sends other D to "rows" and copies misaligned
+//     inputs.
+//   - S = QK^T by wgmma.m64n64k16 (bf16 in, fp32 out, both operands read by
+//     descriptor from shared memory); each warp holds its 16 rows' whole
+//     score row in fp32 registers (the kernels are instantiated for 64, 128,
+//     192 and 256 padded keys, so the register arrays have compile-time
+//     extents; ptxas reports no spills at 256).
+//   - Softmax: the scale applied in fp32 to the accumulated scores (q *
+//     scale rounded to bf16 would be exact only for D a power of 4; for a
+//     power-of-two scale one FMA gives the product-then-difference's bits),
+//     pad keys masked to -inf, the row max and sum by quad shuffles, P = e / sum
+//     correctly rounded (`div_rn`: the same bits as a division, not a
+//     multiply by the reciprocal) and rounded to bf16 straight into the
+//     register A operand of O = P.V, so P never touches shared memory.
+//   - O = P.V by wgmma with V read MN-major from shared memory, accumulated
+//     in fp32 and rounded once into the (now free) Q tile, which one thread
+//     stores by TMA (the map clips rows past N).
+//   Every softmax step is an _rn intrinsic, so the compiler contracts
+//   nothing and K1 and K3, which inline the same routine on the same staged
+//   values, agree bit for bit.
+//   K1's launch: one warpgroup per (b, h, 64 query rows); at (192, 64) it
+//   stages 64 + 2 x 192 rows of 128 B (57 KB), so 3 blocks (12 warps, at
+//   most 168 registers a thread) are resident per SM. At N = 192 that is
+//   1,728 blocks at B = 48 (4.4 waves of 396) and 576 at B = 16 (1.5 waves);
+//   K and V are read once per 64 rows, the re-reads from L2.
+//   K3's launch: persistent, one block of 3 warpgroups (2 at 256 padded
+//   keys) per SM, each block walking the (b, h) items b * H + h, + grid,
+//   ...; thread 0 loads the next item into a second buffer while the
+//   current item computes (2 x 72 KB at (192, 64); one buffer when two do
+//   not fit, e.g. D > 64 at N > 128).
+// * "rows", fp32 (tensor cores would take fp32 as TF32, outside the 2e-5
+//   contract), and bf16 above N = 256 or with D % 8 != 0: the first design
+//   on CUDA cores. One
+//   warp per query row; lanes split the N keys for the scores, reduce max
+//   and sum with shuffles, and split the D output columns for P.V. K1 is a
+//   block of 8 warps per (b, h, 64 rows) with K (rows padded so that lanes
+//   reading 32 different rows hit 32 different banks) and V of its head in
+//   shared memory; K3 is a block of 16 warps per batch row staging one
+//   head at a time. q is widened to fp32 and scaled before the product.
 //
 // Built by whmr_tpu_torch/ops/cuda_build.py (nvcc, sm_90a) into a shared
 // library with a plain C interface, loaded with ctypes by ops/attention.py.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -81,6 +129,22 @@ __host__ __device__ inline size_t kv_bytes(int n, int d, int esize) {
 // score row (N) and one fp32 scaled query row (D).
 __host__ __device__ inline size_t smem_bytes(int n, int d, int esize, int warps) {
   return kv_bytes(n, d, esize) + (size_t)warps * (size_t)(n + d) * sizeof(float);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raises a kernel's dynamic shared-memory limit on the current device to
+// `smem`, remembering in `allowed` (the call site's own table) what it set:
+// the attribute call would otherwise cost microseconds on every launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
+  return err;
 }
 
 // Stages K (rows padded to k_stride) and V of one head in shared memory.
@@ -187,8 +251,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int N, int D, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(N, D, (int)sizeof(T), kWarps);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed[kMaxDevices];
+  cudaError_t err = allow_smem(attention_kernel<T>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
   attention_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -235,8 +299,8 @@ template <typename T>
 int launch_batch(const void* q, const void* k, const void* v, void* o, int B,
                  int H, int N, int D, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(N, D, (int)sizeof(T), kBatchWarps);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_batch_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed[kMaxDevices];
+  cudaError_t err = allow_smem(attention_batch_kernel<T>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   attention_batch_kernel<T><<<B, kBatchThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -244,34 +308,624 @@ int launch_batch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The "mma" variant: bf16 on tensor cores (see the notes at the top).
+
+constexpr int kMmaMaxN = 256;
+// K1: one warpgroup (4 warps) per (b, h, 64 query rows).
+constexpr int kMmaThreads = 128;
+constexpr int kMmaRows = 64;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory an H100 block may use
+constexpr int kSmemAlign = 1024;     // the 128-byte swizzle repeats every 1024 bytes
+
+// K3: 3 warpgroups (one 64-row tile each at N = 192) within 168 registers a
+// thread; at 256 padded keys the score row needs more, so 2 warpgroups.
+template <int NKP>
+struct BatchMma {
+  static constexpr int kWarpgroups = NKP <= 192 ? 3 : 2;
+  static constexpr int kThreads = kWarpgroups * 128;
+};
+
+typedef __nv_bfloat16 bf16;
+
+__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+// The padded key count the kernels are instantiated for; K and V are
+// staged with this many rows (zero beyond N), and Q in 64-row tiles.
+__host__ __device__ inline int padded_keys(int n) {
+  return n <= 64 ? 64 : n <= 128 ? 128 : n <= 192 ? 192 : 256;
+}
+
+// Shared-memory layout of the tensor-core variant: a (rows, D) matrix as
+// ceil(D / 64) column blocks of 64 bf16 values; a block is `rows` rows of
+// 128 bytes whose 16-byte chunk c lies at chunk c ^ (row % 8): the 128-byte
+// swizzle, which TMA writes and wgmma reads through a B128 descriptor, and
+// under which a column chunk's 8 rows fall in 8 different bank groups.
+// Columns past D are zero.
+__host__ __device__ inline int col_blocks(int d) { return (d + 63) / 64; }
+
+__device__ inline uint32_t swz(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// K1's block: its 64 query rows, K and V (padded_keys rows each).
+__host__ __device__ inline size_t mma_tile_bytes(int n, int d) {
+  return (size_t)(kMmaRows + 2 * padded_keys(n)) * 128 * col_blocks(d) + kSmemAlign;
+}
+
+// One stage of K3's block: Q, K and V of one (b, h) item, padded_keys rows each.
+__host__ __device__ inline size_t mma_head_bytes(int n, int d) {
+  return (size_t)3 * padded_keys(n) * 128 * col_blocks(d);
+}
+
+// K3 double-buffers the items when two fit in a block.
+__host__ __device__ inline int batch_mma_stages(int n, int d) {
+  return 2 * mma_head_bytes(n, d) + kSmemAlign <= kMaxSmem ? 2 : 1;
+}
+
+__host__ __device__ inline size_t batch_mma_smem_bytes(int n, int d) {
+  return batch_mma_stages(n, d) * mma_head_bytes(n, d) + kSmemAlign;
+}
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Makes this thread's shared-memory accesses ordered with the asynchronous
+// proxy (TMA writes, wgmma reads).
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Arrives on `bar` and tells it `bytes` of TMA writes will complete its phase.
+__device__ inline void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// A (64 x rows) box of the (D, N, B * H) tensor map at (col, row, item),
+// out-of-bounds elements zero, to dst; completes `bar`'s transaction bytes.
+__device__ inline void tma_load(void* dst, const CUtensorMap* map, int col, int row, int item,
+                                uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(item), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The (64 x 64) box at src to (col, row, item) of the tensor map, clipped to
+// its bounds; the calling thread commits it to its bulk group.
+__device__ inline void tma_store(const CUtensorMap* map, const void* src, int col, int row, int item) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(col), "r"(row), "r"(item), "r"(smem_u32(src))
+      : "memory");
+}
+
+// Waits until the thread's bulk stores have read their shared memory.
+__device__ inline void tma_store_commit_and_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The four tensor maps of a launch: q, k, v (boxes of 64 columns x the
+// kernel's rows) and o (64 x 64).
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+
+// A wgmma shared-memory descriptor of the 128-byte swizzled layout: start
+// address, leading and stride byte offsets in 16-byte units, B128.
+__device__ inline uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+__device__ __forceinline__ void reg_fence(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+#define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F8(i) WG_F4(i), WG_F4(i + 4)
+#define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
+
+// d[0, 32) += A (64 x 16, K-major in shared memory) B (16 x 64, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F32(0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[0, 32) += A (64 x 16 in registers) B (16 x 64, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_F32
+#undef WG_F8
+#undef WG_F4
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// x / l correctly rounded, given r = RN(1 / l): q = RN(x r) is within an
+// ulp of x / l, the FMA gives the remainder x - q l exactly, and RN(q + rem
+// r) is then the correctly rounded quotient (Markstein's theorem, for
+// quotients in fp32's normal range; tests/test_torch_attention.py holds the
+// formula to exact division). One reciprocal a row replaces a division an
+// element: the same bits as x / l, at 3 instructions an element.
+__device__ inline float div_rn(float x, float l, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, l, x), r, q);
+}
+
+// Where a block stages one (b, h) head: Q (q_rows rows), K and V
+// (padded_keys rows each), each as col_blocks(D) swizzled column blocks.
+struct HeadTiles {
+  unsigned char* q;
+  unsigned char* k;
+  unsigned char* v;
+  int q_rows, kv_rows, cb;
+  __device__ HeadTiles(unsigned char* base, int q_rows_, int kv_rows_, int d)
+      : q_rows(q_rows_), kv_rows(kv_rows_), cb(col_blocks(d)) {
+    q = base;
+    k = q + (size_t)q_rows * 128 * cb;
+    v = k + (size_t)kv_rows * 128 * cb;
+  }
+};
+
+// The head's TMA loads (one thread): each tensor's column blocks, with rows
+// past N and columns past D zero-filled by the tensor maps' bounds. Q and K
+// complete `qk`, V completes `vb`, so the scores can start before V lands.
+__device__ inline void load_head(const HeadTiles& t, const Maps& m, int q_row0, int item,
+                                 uint64_t* qk, uint64_t* vb) {
+  mbar_expect(qk, (uint32_t)(t.q_rows + t.kv_rows) * 128 * t.cb);
+  for (int b = 0; b < t.cb; ++b) {
+    tma_load(t.q + (size_t)b * t.q_rows * 128, &m.q, 64 * b, q_row0, item, qk);
+    tma_load(t.k + (size_t)b * t.kv_rows * 128, &m.k, 64 * b, 0, item, qk);
+  }
+  mbar_expect(vb, (uint32_t)t.kv_rows * 128 * t.cb);
+  for (int b = 0; b < t.cb; ++b) {
+    tma_load(t.v + (size_t)b * t.kv_rows * 128, &m.v, 64 * b, 0, item, vb);
+  }
+}
+
+// One warpgroup: the 64 query rows of the tile at q_t (row 0 of the tile at
+// byte 0 of each of its column blocks, blocks q_stride bytes apart) of a
+// head whose K and V (NKP rows, zero beyond N) are staged at k_t and v_t
+// (blocks kv_stride bytes apart). Each warp owns 16 rows of the tile and
+// ends with its 16 bf16 output rows over its rows of q_t. NKP is the
+// compile-time extent of the score row: NKP / 2 fp32 registers a thread.
+// v_bar completes, at parity v_parity, when V has landed.
+template <int NKP>
+__device__ inline void attend_tile_mma(unsigned char* q_t, int q_stride, const unsigned char* k_t,
+                                       const unsigned char* v_t, int kv_stride, int n, int d,
+                                       float scale, uint64_t* v_bar, uint32_t v_parity) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // accumulator rows g and g + 8 of the warp's 16
+  const int t = lane % 4;  // accumulator columns 2t and 2t + 1 of each n8 tile
+  const int w = (threadIdx.x / 32) % 4;  // the warp's 16 rows in the tile
+  const int cb = col_blocks(d);
+  const uint32_t q_a = smem_u32(q_t);
+  const uint32_t k_a = smem_u32(k_t);
+  const uint32_t v_a = smem_u32(v_t);
+
+  // S = Q K^T, 64 x NKP unscaled fp32 sums: per k16 step one m64n64k16 per
+  // 64 keys. A (Q) and B (K) are K-major: 8-row groups 1024 B apart, a k16
+  // step 32 B into the swizzled 128-byte rows.
+  float s[NKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = 0.f;
+      reg_fence(s[j][e]);
+    }
+  }
+  wgmma_fence();
+  for (int kk = 0; kk < round16(d) / 16; ++kk) {
+    const uint32_t k_off = 32u * (kk % 4);
+    const uint64_t da = gmma_desc(q_a + (uint32_t)((kk / 4) * q_stride) + k_off, 16, 1024);
+#pragma unroll
+    for (int nb = 0; nb < NKP / 64; ++nb) {
+      wgmma_ss_n64(&s[8 * nb][0], da,
+                   gmma_desc(k_a + (uint32_t)((kk / 4) * kv_stride + nb * 64 * 128) + k_off, 16, 1024));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(s[j][e]);
+  }
+
+  // Pad keys (n < NKP) take -inf, then the row max. The scale is positive
+  // and rounding is monotonic, so the max of the scaled scores RN(s * scale)
+  // is RN(max(s) * scale).
+  if (n < NKP) {
+#pragma unroll
+    for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * j + 2 * t + e >= n) s[j][e] = s[j][2 + e] = -INFINITY;
+      }
+    }
+  }
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  m0 = __fmul_rn(m0, scale);
+  m1 = __fmul_rn(m1, scale);
+
+  // e = exp(RN(s * scale) - m), 0 at the pads, and the row sums. When the
+  // scale is a power of two (D = 4, 16, 64, ...), s * scale is exact and one
+  // FMA gives the same bits as the product and the difference.
+  float l0 = 0.f, l1 = 0.f;
+  if ((__float_as_uint(scale) & 0x7FFFFF) == 0) {
+#pragma unroll
+    for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = expf(__fmaf_rn(s[j][e], scale, -m0));
+        s[j][2 + e] = expf(__fmaf_rn(s[j][2 + e], scale, -m1));
+        l0 = __fadd_rn(l0, s[j][e]);
+        l1 = __fadd_rn(l1, s[j][2 + e]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = expf(__fsub_rn(__fmul_rn(s[j][e], scale), m0));
+        s[j][2 + e] = expf(__fsub_rn(__fmul_rn(s[j][2 + e], scale), m1));
+        l0 = __fadd_rn(l0, s[j][e]);
+        l1 = __fadd_rn(l1, s[j][2 + e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, off));
+    l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, off));
+  }
+
+  // P = e / sum, divided and rounded to bf16 straight into the register A
+  // operand of P.V: the accumulator tiles of keys 16c..16c+7 and
+  // 16c+8..16c+15 are A fragment c.
+  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+  uint32_t p[NKP / 16][4];
+#pragma unroll
+  for (int c = 0; c < NKP / 16; ++c) {
+    p[c][0] = pack_bf16(div_rn(s[2 * c][0], l0, r0), div_rn(s[2 * c][1], l0, r0));
+    p[c][1] = pack_bf16(div_rn(s[2 * c][2], l1, r1), div_rn(s[2 * c][3], l1, r1));
+    p[c][2] = pack_bf16(div_rn(s[2 * c + 1][0], l0, r0), div_rn(s[2 * c + 1][1], l0, r0));
+    p[c][3] = pack_bf16(div_rn(s[2 * c + 1][2], l1, r1), div_rn(s[2 * c + 1][3], l1, r1));
+  }
+
+  // O = P V, 64 x (64 per column block) in fp32: per k16 step of keys one
+  // m64n64k16 per column block. B (V) is MN-major: 8-key groups 1024 B
+  // apart (a k16 step is 2048 B), column blocks kv_stride apart.
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    o[i] = 0.f;
+    reg_fence(o[i]);
+  }
+  mbar_wait(v_bar, v_parity);
+  wgmma_fence();
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    if (b < cb) {
+#pragma unroll
+      for (int c = 0; c < NKP / 16; ++c) {
+        if (16 * c < n) {
+          wgmma_rs_n64(&o[32 * b], p[c],
+                       gmma_desc(v_a + (uint32_t)(b * kv_stride + c * 2048), (uint32_t)kv_stride, 1024));
+        }
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) reg_fence(o[i]);
+
+  // Rounded once to bf16, over the warp's own rows of q_t.
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j / 8 < cb) {
+      unsigned char* blk = q_t + (size_t)(j / 8) * q_stride;
+      const int row = 16 * w + g;
+      *reinterpret_cast<__nv_bfloat162*>(blk + swz(row, j % 8) + 4 * t) =
+          __floats2bfloat162_rn(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(blk + swz(row + 8, j % 8) + 4 * t) =
+          __floats2bfloat162_rn(o[4 * j + 2], o[4 * j + 3]);
+    }
+  }
+  __syncwarp();
+}
+
+// A warpgroup's tile: attend, then one thread stores the whole tile by TMA
+// (the map clips rows past N) once the four warps have written it. The
+// tile's shared memory is free on return.
+template <int NKP>
+__device__ inline void attend_and_store(unsigned char* q_t, int q_stride, const unsigned char* k_t,
+                                        const unsigned char* v_t, int kv_stride, int n, int d,
+                                        float scale, const Maps& m, uint64_t* v_bar,
+                                        uint32_t v_parity, int o_row0, int item) {
+  attend_tile_mma<NKP>(q_t, q_stride, k_t, v_t, kv_stride, n, d, scale, v_bar, v_parity);
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (int)threadIdx.x / 128) : "memory");
+  if (threadIdx.x % 128 == 0) {
+    for (int b = 0; b < col_blocks(d); ++b) tma_store(&m.o, q_t + (size_t)b * q_stride, 64 * b, o_row0, item);
+    tma_store_commit_and_wait_read();
+  }
+}
+
+__device__ inline unsigned char* aligned_smem(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + kSmemAlign - 1) & ~(uintptr_t)(kSmemAlign - 1));
+}
+
+// K1, "mma": grid (ceil(N / 64), H, B), one warpgroup per 64 query rows.
+// m's q boxes are 64 rows, k's and v's NKP rows.
+template <int NKP>
+__global__ void __launch_bounds__(kMmaThreads, NKP <= 192 ? 3 : 1)
+attention_mma_kernel(const __grid_constant__ Maps m, int H, int N, int D, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t qk_bar, v_bar;
+  const HeadTiles t(aligned_smem(smem_raw), kMmaRows, NKP, D);
+  const int row0 = blockIdx.x * kMmaRows;
+  const int item = blockIdx.z * H + blockIdx.y;
+  if (threadIdx.x == 0) {
+    mbar_init(&qk_bar, 1);
+    mbar_init(&v_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_head(t, m, row0, item, &qk_bar, &v_bar);
+  }
+  __syncthreads();
+  mbar_wait(&qk_bar, 0);
+  attend_and_store<NKP>(t.q, kMmaRows * 128, t.k, t.v, NKP * 128, N, D, scale, m, &v_bar, 0, row0,
+                        item);
+}
+
+// K3, "mma": a persistent grid; each block walks the items b * H + h
+// (a batch row's heads in turn) from blockIdx.x in steps of gridDim.x, its
+// warpgroups taking the 64-row tiles of an item in turn. Thread 0 loads the
+// next item by TMA into the other buffer while the current one computes
+// (stages == 2), or after it (stages == 1).
+template <int NKP>
+__global__ void __launch_bounds__(BatchMma<NKP>::kThreads, 1)
+attention_batch_mma_kernel(const __grid_constant__ Maps m, int items, int N, int D, float scale,
+                           int stages) {
+  constexpr int kWarpgroups = BatchMma<NKP>::kWarpgroups;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t qk_bar[2], v_bar[2];
+  unsigned char* base = aligned_smem(smem_raw);
+  const size_t stage_bytes = (size_t)3 * NKP * 128 * col_blocks(D);
+  int item = blockIdx.x;
+  if (item >= items) return;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&qk_bar[b], 1);
+      mbar_init(&v_bar[b], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_head(HeadTiles(base, NKP, NKP, D), m, 0, item, &qk_bar[0], &v_bar[0]);
+  }
+  __syncthreads();
+  for (int it = 0; item < items; ++it, item += gridDim.x) {
+    const int next = item + gridDim.x;
+    const int buf = stages == 2 ? it % 2 : 0;
+    const uint32_t parity = stages == 2 ? (it / 2) % 2 : it % 2;
+    const HeadTiles t(base + buf * stage_bytes, NKP, NKP, D);
+    // The other buffer was freed by the barrier that ended the last item.
+    if (stages == 2 && next < items && threadIdx.x == 0) {
+      load_head(HeadTiles(base + (1 - buf) * stage_bytes, NKP, NKP, D), m, 0, next,
+                &qk_bar[1 - buf], &v_bar[1 - buf]);
+    }
+    mbar_wait(&qk_bar[buf], parity);
+    for (int r = 64 * (threadIdx.x / 128); r < N; r += 64 * kWarpgroups) {
+      attend_and_store<NKP>(t.q + (size_t)r * 128, NKP * 128, t.k, t.v, NKP * 128, N, D, scale, m,
+                            &v_bar[buf], parity, r, item);
+    }
+    __syncthreads();  // every warp is done with this buffer
+    if (stages == 1 && next < items && threadIdx.x == 0) {
+      load_head(t, m, 0, next, &qk_bar[0], &v_bar[0]);
+    }
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
+// link against libcuda).
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// The (D, N, B * H) bf16 tensor at ptr in boxes of 64 columns x box_rows
+// rows of one item, 128-byte swizzled, out-of-bounds elements zero.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int D, int N, int items, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)items};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NKP>
+int launch_mma_nkp(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                   int D, float scale, int per_batch, cudaStream_t stream) {
+  if (D % 8 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) {
+    return (int)cudaErrorInvalidValue;  // TMA reads 16-byte aligned rows
+  }
+  const int items = B * H;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  cudaError_t err;
+  if ((err = tensor_map(&maps.q, q, D, N, items, per_batch ? NKP : kMmaRows)) != cudaSuccess ||
+      (err = tensor_map(&maps.k, k, D, N, items, NKP)) != cudaSuccess ||
+      (err = tensor_map(&maps.v, v, D, N, items, NKP)) != cudaSuccess ||
+      (err = tensor_map(&maps.o, o, D, N, items, kMmaRows)) != cudaSuccess) {
+    return (int)err;
+  }
+  if (!per_batch) {
+    const size_t smem = mma_tile_bytes(N, D);
+    static size_t allowed[kMaxDevices];
+    if ((err = allow_smem(attention_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
+    const dim3 grid((N + kMmaRows - 1) / kMmaRows, H, B);
+    attention_mma_kernel<NKP><<<grid, kMmaThreads, smem, stream>>>(maps, H, N, D, scale);
+    return (int)cudaGetLastError();
+  }
+  const int stages = batch_mma_stages(N, D);
+  const size_t smem = batch_mma_smem_bytes(N, D);
+  static size_t allowed[kMaxDevices];
+  if ((err = allow_smem(attention_batch_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
+  // The blocks that fit on the card at once, cached per device and
+  // shared-memory size (the queries cost microseconds).
+  static size_t slots_smem[kMaxDevices];
+  static int slots_cached[kMaxDevices];
+  int dev = 0, slots = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && slots_smem[dev] == smem) {
+    slots = slots_cached[dev];
+  } else {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, attention_batch_mma_kernel<NKP>, BatchMma<NKP>::kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    slots = sms * (per_sm > 1 ? per_sm : 1);
+    if (dev < kMaxDevices) {
+      slots_cached[dev] = slots;
+      slots_smem[dev] = smem;
+    }
+  }
+  const int grid = items < slots ? items : slots;
+  attention_batch_mma_kernel<NKP><<<grid, BatchMma<NKP>::kThreads, smem, stream>>>(
+      maps, items, N, D, scale, stages);
+  return (int)cudaGetLastError();
+}
+
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
+               float scale, int per_batch, cudaStream_t s) {
+  switch (padded_keys(N)) {
+    case 64: return launch_mma_nkp<64>(q, k, v, o, B, H, N, D, scale, per_batch, s);
+    case 128: return launch_mma_nkp<128>(q, k, v, o, B, H, N, D, scale, per_batch, s);
+    case 192: return launch_mma_nkp<192>(q, k, v, o, B, H, N, D, scale, per_batch, s);
+    default: return launch_mma_nkp<256>(q, k, v, o, B, H, N, D, scale, per_batch, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one block needs; the wrapper refuses shapes above
-// the card's per-block limit before it launches.
-// per_batch selects K3's block (one per batch row), else K1's.
-size_t whmr_attention_smem_bytes(int n, int d, int esize, int per_batch) {
+// the card's per-block limit before it launches. per_batch selects K3's
+// block, else K1's; use_mma the "mma" variant (bf16, N <= 256), else "rows".
+size_t whmr_attention_smem_bytes(int n, int d, int esize, int per_batch, int use_mma) {
+  if (use_mma) return per_batch ? batch_mma_smem_bytes(n, d) : mma_tile_bytes(n, d);
   return smem_bytes(n, d, esize, per_batch ? kBatchWarps : kWarps);
 }
 
-// q, k, v, o: contiguous (B, H, N, D); is_bf16 selects bf16, else fp32.
+// q, k, v, o: contiguous (B, H, N, D); is_bf16 selects bf16, else fp32;
+// use_mma the tensor-core variant, which takes bf16 with N <= 256, D % 8 == 0
+// and 16-byte aligned pointers only.
 // Returns cudaGetLastError() after the launch (0 on success).
-int whmr_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int N, int D, float scale, int is_bf16,
-                       void* stream) {
+int whmr_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                       int D, float scale, int is_bf16, int use_mma, void* stream) {
   if (D < 1 || D > kMaxD || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!is_bf16 || N > kMmaMaxN) return (int)cudaErrorInvalidValue;
+    return launch_mma(q, k, v, o, B, H, N, D, scale, 0, s);
+  }
   if (is_bf16) return launch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
   return launch<float>(q, k, v, o, B, H, N, D, scale, s);
 }
 
-// K3: the same contract as whmr_attention_fwd, one block per batch row.
-int whmr_attention_batch_fwd(const void* q, const void* k, const void* v,
-                             void* o, int B, int H, int N, int D, float scale,
-                             int is_bf16, void* stream) {
+// K3: the same contract as whmr_attention_fwd, with K3's launch shapes.
+int whmr_attention_batch_fwd(const void* q, const void* k, const void* v, void* o, int B, int H,
+                             int N, int D, float scale, int is_bf16, int use_mma, void* stream) {
   if (D < 1 || D > kMaxD || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!is_bf16 || N > kMmaMaxN) return (int)cudaErrorInvalidValue;
+    return launch_mma(q, k, v, o, B, H, N, D, scale, 1, s);
+  }
   if (is_bf16) return launch_batch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
   return launch_batch<float>(q, k, v, o, B, H, N, D, scale, s);
 }

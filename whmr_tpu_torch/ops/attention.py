@@ -9,10 +9,17 @@ an H100 and what each design does about it. `attention_reference` below is
 the plain PyTorch version of exactly the same steps, for both: the CPU tests
 use it, and chip_smoke.py holds each kernel against it on the card.
 
+Each kernel has two variants, which the wrappers choose by dtype and shape
+only (`_variant`): "mma", the tensor-core routine, for bf16 with N <= 256
+and D a multiple of 8 (TMA reads 16-byte rows), and "rows", the CUDA-core
+row kernels, for fp32 (tensor cores would take fp32 as TF32) and the other
+bf16 shapes. Both variants compute the same function with the same
+numerics contract and the same plain version.
+
 Each wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; it never falls back from one to the other. Both are
-forward-only: whmr_tpu defines no VJP for its kernels, and the backward here
-raises rather than dropping gradients.
+only for CPU tensors; it never falls back from one to the other, nor from one
+variant to the other. Both are forward-only: whmr_tpu defines no VJP for its
+kernels, and the backward here raises rather than dropping gradients.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from whmr_tpu_torch.ops import cuda_build
 # Per-block dynamic shared memory an H100 grants (232,448 bytes).
 _MAX_SMEM = 232448
 _MAX_D = 128
+_MMA_MAX_N = 256
+_MMA_ROWS = 64  # K1's query rows a block in the "mma" variant (kMmaRows)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _lib = None
@@ -37,12 +46,12 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = cuda_build.load("attention")
         lib.whmr_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.whmr_attention_fwd.restype = ctypes.c_int
         lib.whmr_attention_batch_fwd.argtypes = lib.whmr_attention_fwd.argtypes
         lib.whmr_attention_batch_fwd.restype = ctypes.c_int
-        lib.whmr_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.whmr_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.whmr_attention_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
@@ -68,6 +77,47 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return o.to(q.dtype)
 
 
+def _variant(shape, dtype: torch.dtype) -> str:
+    """The kernel variant for (B, H, N, D) inputs of `dtype`: "mma" (tensor
+    cores) for bf16 with N <= 256 and D % 8 == 0, else "rows" (CUDA cores).
+    Shape and dtype alone decide; nothing at run time switches variants."""
+    mma = dtype == torch.bfloat16 and shape[2] <= _MMA_MAX_N and shape[3] % 8 == 0
+    return "mma" if mma else "rows"
+
+
+def _smem_bytes(shape, dtype: torch.dtype, per_batch: bool, variant: str | None = None) -> int:
+    """Dynamic shared memory of one block of K1 (or K3 with `per_batch`) in
+    `variant` (by default the one `_variant` picks); csrc/attention.cu's
+    `whmr_attention_smem_bytes` gives the same figures.
+
+    "mma": 128-byte rows, one set per 64 columns of D, plus 1024 bytes to
+    align the swizzled layout (csrc/attention.cu). K1 holds its 64 query
+    rows, and K and V with N padded to the kernel's key count (64, 128, 192
+    or 256); K3 holds Q, K and V of one (b, h) item with that many rows, and
+    two such items when they fit in a block (it loads the next while the
+    current one computes). "rows": K with rows padded to an odd number of
+    32-bit words and V in the input dtype, and an fp32 score row (N) and
+    query row (D) for each of the block's warps (8 for K1, 16 for K3).
+    """
+    n, d = shape[2], shape[3]
+    if (variant or _variant(shape, dtype)) == "mma":
+        nkp = 64 if n <= 64 else 128 if n <= 128 else 192 if n <= 192 else 256  # padded_keys()
+        row = 128 * -(-d // 64)
+        if not per_batch:
+            return (_MMA_ROWS + 2 * nkp) * row + 1024
+        item = 3 * nkp * row
+        return (2 * item if 2 * item + 1024 <= _MAX_SMEM else item) + 1024
+    esize = torch.finfo(dtype).bits // 8
+    if esize == 4:
+        ks = d if d % 2 else d + 1
+    else:
+        even = d + d % 2
+        ks = even if (even // 2) % 2 else even + 2
+    kv = n * (ks + d) * esize
+    kv = (kv + 15) // 16 * 16
+    return kv + (16 if per_batch else 8) * (n + d) * 4
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
@@ -82,44 +132,55 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("attention takes contiguous q, k, v")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool = False) -> torch.Tensor:
-    """K1, or K3 with `per_batch` (one block per batch row)."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool = False,
+            variant: str | None = None) -> torch.Tensor:
+    """K1, or K3 with `per_batch`, in `variant` (by default `_variant`'s
+    choice; chip_smoke.py names "rows" to time the CUDA-core kernel at a
+    bf16 shape beside the tensor-core one)."""
     b, h, n, d = q.shape
+    variant = variant or _variant(q.shape, q.dtype)
     lib = _kernel_lib()
-    esize = q.element_size()
-    smem = lib.whmr_attention_smem_bytes(n, d, esize, int(per_batch))
+    smem = _smem_bytes(q.shape, q.dtype, per_batch, variant)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"attention: N={n}, D={d} in {q.dtype} needs {smem} B of shared memory, "
             f"more than the {_MAX_SMEM} B a block may use"
         )
+    if variant == "mma":
+        # TMA reads from 16-byte boundaries; a contiguous view off one (an
+        # offset into a larger tensor) is copied, with the same result.
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         fwd = lib.whmr_attention_batch_fwd if per_batch else lib.whmr_attention_fwd
         err = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, n, d, _scale(d), int(q.dtype == torch.bfloat16), stream,
+            b, h, n, d, _scale(d), int(q.dtype == torch.bfloat16), int(variant == "mma"), stream,
         )
     name = "fused_attention (K3)" if per_batch else "attention (K1)"
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    if per_batch:
-        fused_attention.launches += 1
-    else:
-        attention.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed ({variant} variant): cudaError {err}")
+    counted = fused_attention if per_batch else attention
+    counted.launches += 1
+    if variant == "mma":
+        counted.mma_launches += 1
     return o
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool) -> torch.Tensor:
+    if q.device.type == "cuda":
+        return _launch(q, k, v, per_batch)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
 
 
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, per_batch):
         ctx.per_batch = per_batch
-        if q.device.type == "cuda":
-            return _launch(q, k, v, per_batch)
-        if q.device.type == "cpu":
-            return attention_reference(q, k, v)
-        raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
+        return _forward(q, k, v, per_batch)
 
     @staticmethod
     def backward(ctx, grad):
@@ -130,29 +191,41 @@ class _Attention(torch.autograd.Function):
         )
 
 
+def _apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool) -> torch.Tensor:
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Attention.apply(q, k, v, per_batch)  # its backward raises
+    return _forward(q, k, v, per_batch)  # no graph to build: skip autograd's per-call cost
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax((q/sqrt(D)) k^T) v over (B, H, N, D) tensors, in their dtype.
 
     CUDA tensors go through the hand-written kernel (counted in
-    `attention.launches`); CPU tensors through `attention_reference`.
+    `attention.launches`, and its tensor-core launches, bf16 with N <= 256
+    and D % 8 == 0, also in `attention.mma_launches`); CPU tensors through
+    `attention_reference`. The variant follows from dtype and shape alone
+    (`_variant`).
     """
-    _check(q, k, v)
-    return _Attention.apply(q, k, v, False)
+    return _apply(q, k, v, False)
 
 
 attention.launches = 0
+attention.mma_launches = 0
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K3: the same function as `attention`, with the TPU kernel's launch
     shape of one block per batch row looping over the H heads.
 
-    CUDA tensors go through K3 (counted in `fused_attention.launches`); CPU
-    tensors through `attention_reference`, which is K3's plain version too,
-    since K3 computes K1's function with K1's numerics step for step.
+    CUDA tensors go through K3 (counted in `fused_attention.launches`, its
+    tensor-core launches also in `fused_attention.mma_launches`), in the
+    variant `_variant` picks from dtype and shape; CPU tensors through
+    `attention_reference`, which is K3's plain version too, since K3 runs
+    K1's device routines: on the card its output equals K1's bit for bit.
     """
-    _check(q, k, v)
-    return _Attention.apply(q, k, v, True)
+    return _apply(q, k, v, True)
 
 
 fused_attention.launches = 0
+fused_attention.mma_launches = 0

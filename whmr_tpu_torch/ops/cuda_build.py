@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,9 +48,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names) -> Dict[str, str]:
-    """Compile the named kernels that are not built yet: one nvcc process
-    for each source, all started together.
+def build_all(names, force: bool = False) -> Dict[str, str]:
+    """Compile the named kernels that are not built yet (all of them with
+    `force`): one nvcc process for each source, all started together.
 
     Returns the compiler output of each ("" when nothing was compiled;
     ptxas prints registers, shared memory and spills per kernel). Raises
@@ -59,7 +60,7 @@ def build_all(names) -> Dict[str, str]:
     running = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and not force:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -88,3 +89,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+_PTXAS_FUNCTION = re.compile(r"(?:Compiling entry function '|Function properties for )([^'\s]+)")
+_PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(text: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each function in `build_all`'s output
+    (nvcc -Xptxas -v), by mangled name: {"registers", "spill_stores",
+    "spill_loads"}."""
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        m = _PTXAS_FUNCTION.search(line)
+        if m:
+            current = report.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = _PTXAS_SPILLS.search(line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = _PTXAS_REGISTERS.search(line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return report
