@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. Build: compiles every CUDA kernel from the sources in this checkout into
    build/, one nvcc for each source, all started together; prints ptxas's
    registers and spill bytes for each kernel instantiation, and fails on a
-   spill in the tensor-core ("mma") variant of K1 and K3.
+   spill in the tensor-core ("mma") variant of K1 and K3 or in any of K2's
+   kernels.
 3. Kernels: holds each kernel against its plain PyTorch version on the
    card. K1 (attention) and K3 (fused_attention, the same function in K3's
    launch shape) at the forward's shapes, ViT-H's head (D = 80), the
@@ -19,7 +20,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    least-squares GT cameras, the 13,776-face topology, the 128x96 window at
    origin (16, 0)), on a ragged case (ties
    inside and across chunks, padding faces, sides that are no multiple of
-   the tile) and with the largest GT camera, which covers every tile.
+   the tile) and with the largest GT camera, which covers every tile; prints
+   what the render needs (`raster_work`) and the pairs the chunk cull leaves.
 4. Forward path: the full-width WHMR forward (ViT-B, 3 MAF steps, CamCalib,
    world SMPL) in bf16 with vit.attn_impl="pallas", seeded random weights and
    synthetic SMPL assets: B=16 crops without a frame and B=48 crops with one
@@ -41,7 +43,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. Times (CUDA events / synchronized host clock, after warm-up): each kernel
    beside its bound, its plain version and the PyTorch library call for the
    same function (none for K2), K1 and K3 also in their CUDA-core variant
-   at the same bf16 shape; forward crops/s at B=48 with "pallas" and
+   at the same bf16 shape, K2 also with its wrapper, its face tables and under
+   the largest GT camera; forward crops/s at B=48 with "pallas" and
    with "einsum"; train step ms and crops/s at B=64; peak memory.
 7. Trainer path: `Trainer.fit` at the same width, 2 epochs x 3 steps of
    B=64 fed by the port's BatchLoader and device_prefetch from an in-memory
@@ -110,6 +113,8 @@ KERNELS = ("attention", "rasterizer")
 # three barycentrics at 2 mul + 2 add, three compares, the depth at
 # 3 mul + 2 add, a select and a min.
 RASTER_OPS_PER_PAIR = 3 * 4 + 3 + 5 + 2
+# K2's kernels: the face pass and the resolve step.
+RASTER_INSTANTIATIONS = 2
 TRAIN_STEPS = 3
 # The trainer path: 2 epochs of 3 steps, validation over 2 batches of 48.
 TRAINER_STEPS_PER_EPOCH = 3
@@ -221,23 +226,34 @@ def phase_device():
     return smi
 
 
-def rasterizer_bound_ms(tables, bbox, resolution, tile_hw, origin, chunk):
-    """Least time for K2's work on these inputs: the face tables and bboxes
-    read once and zbuf and attrs written once, against the coverage-and-depth
-    test of every (pixel, face) pair of the chunks that pass the cull, at the
-    fp32 peak. Returns (ms, bound_by, pairs)."""
+def rasterizer_bound_ms(face_bbox, bbox, resolution, tile_hw, origin, n_attr):
+    """Least time for K2's work on these inputs, as `k2.raster_work` counts
+    it: the table rows of the faces that can shade a pixel read once and zbuf
+    and attrs written once, against the coverage-and-depth test of each
+    (pixel, face) pair whose pixel centre lies in the face's padded bbox, at
+    the fp32 peak. Returns (ms, bound_by, counts), counts holding those pairs,
+    the live faces and the bytes, and the pairs the chunk cull leaves (each
+    pixel of a tile against each face of a chunk whose bbox meets the tile:
+    the count of the first design's bound)."""
+    pairs, live, n_bytes = k2.raster_work(face_bbox, resolution, origin, n_attr)
     h, w = resolution
     th, tw = tile_hw
     hits = k2.tile_hits(bbox, resolution, tile_hw, origin)  # (B, tiles, K)
     nbx = -(-w // tw)
     tiles = torch.arange(hits.shape[1], device=hits.device)
     pix = ((h - (tiles // nbx) * th).clamp(max=th) * (w - (tiles % nbx) * tw).clamp(max=tw)).float()
-    pairs = float((hits.float().sum(dim=2) * pix).sum().item()) * chunk
-    b, c = bbox.shape[0], tables[4].shape[1] // 3
-    n_bytes = 4 * (sum(t.numel() for t in tables) + bbox.numel() + b * h * w * (1 + c))
+    chunk = face_bbox.shape[2] // bbox.shape[2]
+    chunk_pairs = float((hits.float().sum(dim=2) * pix).sum().item()) * chunk
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = pairs * RASTER_OPS_PER_PAIR / PEAK_OPS_PER_S[torch.float32]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), pairs
+    counts = {"pairs": pairs, "live_faces": live, "bytes": n_bytes, "chunk_cull_pairs": chunk_pairs}
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), counts
+
+
+def k2_work_line(counts):
+    return (f"{counts['pairs']:.4g} (pixel, face) pairs in their face's padded bbox, {counts['live_faces']} faces "
+            f"that can shade a pixel, {counts['bytes'] / 1e6:.2f} MB; pairs the chunk cull leaves "
+            f"{counts['chunk_cull_pairs']:.4g}")
 
 
 # K1's and K3's tensor-core kernels, one instantiation each for 64, 128,
@@ -247,7 +263,8 @@ MMA_INSTANTIATIONS = 8
 
 def phase_build():
     """Builds every kernel (even if build/ holds it, so that ptxas reports);
-    fails on a spill in a tensor-core kernel."""
+    fails on a spill in a tensor-core kernel or in K2. Returns K2's ptxas
+    report by function."""
     t0 = time.perf_counter()
     texts = cuda_build.build_all(KERNELS, force=True)
     log(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s (in parallel)")
@@ -260,7 +277,12 @@ def phase_build():
             if "mma_kernel" in fn:
                 mma += 1
                 check(spills == 0, f"the tensor-core kernel {fn} spills {spills} bytes")
+            if "raster_" in fn:
+                check(spills == 0, f"K2's {fn} spills {spills} bytes")
     check(mma == MMA_INSTANTIATIONS, f"ptxas reported {mma} tensor-core kernels, want {MMA_INSTANTIATIONS}")
+    raster = cuda_build.ptxas_report(texts["rasterizer"])
+    check(len(raster) == RASTER_INSTANTIATIONS, f"ptxas reported {len(raster)} K2 kernels, want {RASTER_INSTANTIATIONS}")
+    return raster
 
 
 def phase_kernels():
@@ -501,11 +523,12 @@ def phase_k2(cfg, consts, rc, batch):
     torch.cuda.synchronize()
     want = k2.rasterize_kernel_reference(vp, vz, attrs, rc.faces, resolution=res, origin=origin)
     err = _same_render(got, want, "train render")
-    _, bbox = k2.raster_tables(vp, vz, attrs, rc.faces)
+    _, bbox, fbox = k2.raster_tables(vp, vz, attrs, rc.faces)
     hits = k2.tile_hits(bbox, res, tile_hw, origin)
+    _, _, counts = rasterizer_bound_ms(fbox, bbox, res, tile_hw, origin, attrs.shape[-1])
     log(f"K2 train render: equal mask and zbuf, attrs max_abs_err {err:.3g}; foreground "
         f"{got.mask.float().mean().item():.3f} of the pixels; (tile, chunk) pairs hit "
-        f"{hits.float().mean().item():.3f}")
+        f"{hits.float().mean().item():.3f}; {k2_work_line(counts)}")
 
     arrays, kw = make_ragged_raster_case()
     verts, z, at = (torch.from_numpy(a).cuda() for a in arrays[:3])
@@ -521,7 +544,7 @@ def phase_k2(cfg, consts, rc, batch):
     sub = {key: v[:16] for key, v in batch.items()}
     cam = torch.tensor([[2 * 1000.0 / 256.0, 0.0, 0.0]] * sub["pose"].shape[0], device="cuda")
     vp2, vz2, attrs2, res2, origin2 = train_raster_inputs(cfg, consts, rc, sub, camera=cam)
-    _, bbox2 = k2.raster_tables(vp2, vz2, attrs2, rc.faces)
+    _, bbox2, _ = k2.raster_tables(vp2, vz2, attrs2, rc.faces)
     hits2 = k2.tile_hits(bbox2, res2, tile_hw, origin2)
     check(bool(hits2.any(dim=2).all()), "the largest GT camera leaves a tile unhit")
     got = k2.rasterize_kernel(vp2, vz2, attrs2, rc.faces, resolution=res2, origin=origin2)
@@ -607,28 +630,34 @@ def phase_train(cfg, model, consts, rc, batch):
     return state, launches
 
 
-def phase_train_times(cfg, model, consts, rc, batch, state, launches, k2_err):
+def phase_train_times(cfg, model, consts, rc, batch, state, launches, k2_err, k2_ptxas):
     """K2 at the train render beside its bound and plain version; the train
     step's time, throughput and peak memory. Returns the step's ms and K2's
     kernels entry."""
     vp, vz, attrs, res, origin = train_raster_inputs(cfg, consts, rc, batch)
     tile_hw = k2._pick_tile_hw(*res, 128)
-    tables, bbox = k2.raster_tables(vp, vz, attrs, rc.faces)
-    ms = cuda_ms(lambda: k2._launch(tables, bbox, res, k2.DEFAULT_CHUNK, tile_hw, origin), 50)
+    tables, bbox, fbox = k2.raster_tables(vp, vz, attrs, rc.faces)
+    ms = cuda_ms(lambda: k2._launch(tables, fbox, res, k2.DEFAULT_CHUNK, origin), 50)
     wrapper_ms = cuda_ms(lambda: k2.rasterize_kernel(vp, vz, attrs, rc.faces, resolution=res, origin=origin), 50)
+    tables_ms = cuda_ms(lambda: k2.kernel_inputs(vp, vz, attrs, rc.faces), 50)
     plain_ms = cuda_ms(lambda: k2.rasterize_kernel_reference(vp, vz, attrs, rc.faces, resolution=res,
                                                              origin=origin), 3, warmup=1)
-    bound_ms, bound_by, pairs = rasterizer_bound_ms(tables, bbox, res, tile_hw, origin, k2.DEFAULT_CHUNK)
-    log(f"K2 B={vp.shape[0]} train render: kernel {ms * 1e3:.1f} us ({wrapper_ms * 1e3:.1f} us with its face tables); "
-        f"bound {bound_ms * 1e3:.1f} us ({bound_by}: {pairs:.4g} pixel-face pairs after the cull, "
-        f"{RASTER_OPS_PER_PAIR} fp32 ops each); plain {plain_ms * 1e3:.1f} us; library none")
+    bound_ms, bound_by, counts = rasterizer_bound_ms(fbox, bbox, res, tile_hw, origin, attrs.shape[-1])
+    regs = "; ".join(f"{name} {r.get('registers')} registers, "
+                     f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)} bytes spilled"
+                     for fn, r in k2_ptxas.items() for name in ("raster_faces", "raster_resolve") if name in fn)
+    log(f"K2 B={vp.shape[0]} train render: kernel {ms * 1e3:.2f} us ({bound_ms / ms:.1%} of the bound), "
+        f"{wrapper_ms * 1e3:.1f} us with its face tables (the tables alone, `kernel_inputs`, {tables_ms * 1e3:.1f} us; "
+        f"both with the host in the events: the tables' pageable index copy waits for the stream); bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by}; {k2_work_line(counts)}; {RASTER_OPS_PER_PAIR} fp32 ops a pair); "
+        f"plain {plain_ms * 1e3:.1f} us; library none; {regs}")
     cam = torch.tensor([[2 * 1000.0 / 256.0, 0.0, 0.0]] * vp.shape[0], device="cuda")
     vpd, vzd, attrsd, _, _ = train_raster_inputs(cfg, consts, rc, batch, camera=cam)
-    tables_d, bbox_d = k2.raster_tables(vpd, vzd, attrsd, rc.faces)
-    ms_d = cuda_ms(lambda: k2._launch(tables_d, bbox_d, res, k2.DEFAULT_CHUNK, tile_hw, origin), 10)
-    bound_d = rasterizer_bound_ms(tables_d, bbox_d, res, tile_hw, origin, k2.DEFAULT_CHUNK)
-    log(f"K2 B={vp.shape[0]} largest GT camera (every tile hit): kernel {ms_d * 1e3:.1f} us; "
-        f"bound {bound_d[0] * 1e3:.1f} us ({bound_d[1]}, {bound_d[2]:.4g} pairs)")
+    tables_d, bbox_d, fbox_d = k2.raster_tables(vpd, vzd, attrsd, rc.faces)
+    ms_d = cuda_ms(lambda: k2._launch(tables_d, fbox_d, res, k2.DEFAULT_CHUNK, origin), 10)
+    bound_d, by_d, counts_d = rasterizer_bound_ms(fbox_d, bbox_d, res, tile_hw, origin, attrsd.shape[-1])
+    log(f"K2 B={vp.shape[0]} largest GT camera (every tile hit): kernel {ms_d * 1e3:.2f} us; "
+        f"bound {bound_d * 1e3:.2f} us ({by_d}; {k2_work_line(counts_d)})")
 
     targets_ms = cuda_ms(lambda: ts.gt_targets(cfg, consts, batch, rc), 10)
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -882,7 +911,7 @@ def phase_preemption(cfg, root, loader, loader_factory):
 
 def main():
     smi = phase_device()
-    phase_build()
+    k2_ptxas = phase_build()
     errs = phase_kernels()
     train_cfg = WHMRConfig()
     train_model, train_consts, rc, batch = train_setup(train_cfg)
@@ -890,7 +919,8 @@ def main():
     cfg, model, consts, inputs, launches = phase_main_path()
     state, train_launches = phase_train(train_cfg, train_model, train_consts, rc, batch)
     kernels = phase_times(cfg, model, consts, inputs, launches, errs)
-    train_ms, k2_entry = phase_train_times(train_cfg, train_model, train_consts, rc, batch, state, train_launches, k2_err)
+    train_ms, k2_entry = phase_train_times(train_cfg, train_model, train_consts, rc, batch, state, train_launches, k2_err,
+                                           k2_ptxas)
     kernels.append(k2_entry)
     del model, inputs, train_model, state, batch
     torch.cuda.empty_cache()

@@ -12,6 +12,7 @@ import torch
 
 from whmr_tpu_torch.data.assets import synthetic_smpl_assets
 from whmr_tpu_torch.ops import attention as tattn
+from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.ops import rasterizer_kernel as k2
 from whmr_tpu_torch.training.gt_renderer import build_render_consts, raster_inputs
 from whmr_tpu_torch.utils.testing import make_ragged_raster_case
@@ -190,3 +191,105 @@ def test_rasterizer_kernel_gt_render(cuda_device, scale):
     torch.cuda.synchronize()
     _check_k2(got, k2.rasterize_kernel_reference(vp, vz, attrs, rc.faces, resolution=res, origin=origin))
     assert got.mask.all() if scale > 5 else not got.mask.all()
+
+
+def make_covering_case(n_faces=3000, seed=0):
+    """Large triangles that each cover the whole 40x56 window at origin
+    (2, 3): every face's bbox holds every pixel centre, so every face has
+    pairs with every pixel, so the kernel's warps share out 2,240 pairs a face. A
+    thin band nearer than the rest (depth 1) repeats at faces 0, 100, ...,
+    500 (six ties in chunk 0, walked in face order) and at 1100 and 2100
+    (ties across chunks, which chunk 0 wins)."""
+    rng = np.random.RandomState(seed)
+    h, w, ox, oy = 40, 56, 2.0, 3.0
+    lo, hi = np.array([ox, oy]), np.array([ox + w, oy + h])
+    r = rng.uniform(5, 60, size=(n_faces, 3))
+    tri = np.stack([lo - r[:, :1], [hi[0], lo[1]] + r[:, 1:2] * [1, -1], [lo[0], hi[1]] + r[:, 2:3] * [-1, 1]], 1)
+    tri[:, 1, 0] += r[:, 1]
+    tri[:, 2, 1] += r[:, 2]
+    band = np.array([[lo[0] - 5, lo[1] - 5], [hi[0] + 5, hi[1] + 5], [lo[0] - 5, lo[1] + 10]])
+    verts = np.concatenate([tri.reshape(-1, 2), band]).astype(np.float32)
+    z = np.concatenate([rng.uniform(2, 8, size=3 * n_faces), [1.0, 1.0, 1.0]]).astype(np.float32)
+    attrs = rng.rand(len(verts), 3).astype(np.float32)
+    faces = np.arange(3 * n_faces).reshape(-1, 3)
+    faces[[0, 100, 200, 300, 400, 500, 1100, 2100]] = 3 * n_faces + np.arange(3)
+    return (verts[None], z[None], attrs[None], faces.astype(np.int32)), {
+        "resolution": (h, w), "chunk": 1024, "origin": (ox, oy)}
+
+
+def make_tiled_plane_case(seed=0):
+    """Exact ties on tile edges: squares of side 8 on the 8-pixel grid and of
+    side 16 on two grids offset by 8, all in the plane z = 2, each split into
+    two right triangles along a diagonal that passes through pixel centres.
+    Every product and sum is exact in fp32, so each pixel is covered by two
+    to six faces at exactly z = 2; the faces are shuffled over chunks of 64,
+    so the winners are the covering faces of the earliest chunk, up to six
+    of them, summed in face order. Every face has its own attributes."""
+    rng = np.random.RandomState(seed)
+    h, w = 48, 64
+    tris = []
+    for side, off in ((8, 0), (16, 0), (16, 8)):
+        for y in range(off, h - side + 1, side):
+            for x in range(off, w - side + 1, side):
+                a, b, c, d = (x, y), (x + side, y), (x + side, y + side), (x, y + side)
+                tris += [[a, b, c], [a, c, d]] if rng.rand() < 0.5 else [[a, b, d], [b, c, d]]
+    tris = np.asarray(tris, np.float32)[rng.permutation(len(tris))]
+    verts = tris.reshape(-1, 2)
+    z = np.full(len(verts), 2.0, np.float32)
+    attrs = rng.rand(len(verts), 3).astype(np.float32)
+    faces = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+    return (verts[None], z[None], attrs[None], faces), {"resolution": (h, w), "chunk": 64, "origin": (0.0, 0.0)}
+
+
+@pytest.mark.cuda
+def test_rasterizer_kernel_faces_cover_the_window(cuda_device):
+    arrays, kw = make_covering_case()
+    verts, z, attrs = (torch.from_numpy(a).to(cuda_device) for a in arrays[:3])
+    _, fbox = k2.kernel_inputs(verts, z, attrs, arrays[3], kw["chunk"])
+    pairs, live, _ = k2.raster_work(fbox, kw["resolution"], kw["origin"], 3)
+    (h, w), n_faces = kw["resolution"], len(arrays[3])
+    assert (pairs, live) == (n_faces * h * w, n_faces)
+    got = k2.rasterize_kernel(verts, z, attrs, arrays[3], tile_hw=(16, 8), **kw)
+    torch.cuda.synchronize()
+    _check_k2(got, k2.rasterize_kernel_reference(verts, z, attrs, arrays[3], **kw))
+    assert bool(got.mask.all())
+
+
+@pytest.mark.cuda
+def test_rasterizer_kernel_ties_on_tile_edges(cuda_device):
+    """At the three tilings, equal to the plain version, and the attributes
+    equal bit for bit across tilings and runs: the winners are summed in
+    face order whatever thread found them first."""
+    arrays, kw = make_tiled_plane_case()
+    verts, z, attrs = (torch.from_numpy(a).to(cuda_device) for a in arrays[:3])
+    want = k2.rasterize_kernel_reference(verts, z, attrs, arrays[3], **kw)
+    assert bool(want.mask.all()) and bool((want.zbuf == 2.0).all())
+    outs = []
+    for tile_hw in ((16, 8), (8, 8), (4, 32), (16, 8)):
+        got = k2.rasterize_kernel(verts, z, attrs, arrays[3], tile_hw=tile_hw, **kw)
+        torch.cuda.synchronize()
+        _check_k2(got, want)
+        outs.append(got.attrs)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_rasterizer_kernel_builds_without_spills(cuda_device):
+    """ptxas's report of K2's kernels (the face pass and the resolve
+    step): no spill."""
+    text = cuda_build.build_all(["rasterizer"], force=True)["rasterizer"]
+    report = {fn: r for fn, r in cuda_build.ptxas_report(text).items() if "raster_" in fn}
+    assert len(report) == 2, report
+    for fn, r in report.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (fn, r)
+
+
+@pytest.mark.cuda
+def test_rasterizer_kernel_refuses_windows_past_the_pair_count(cuda_device):
+    """The kernel's own check, past the wrapper's: a window of more than
+    (2^31 - 1) / 32 pixels, or more than 8 channels, is refused before
+    anything is read or launched."""
+    lib = k2._kernel_lib()
+    nul = [None] * 9
+    for h, w, c in ((8192, 8192, 3), (1, k2._MAX_WINDOW + 1, 3), (8, 8, 9)):
+        assert lib.whmr_raster_fwd(*nul, 1, h, w, 1024, 1024, c, 0.0, 0.0, None) == 1, (h, w, c)  # cudaErrorInvalidValue

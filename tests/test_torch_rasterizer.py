@@ -18,6 +18,8 @@ does on the card. So:
 The tables (eager JAX rounds each operation too) must agree bit for bit.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,12 +157,16 @@ def test_sort_and_tables_match_whmr_tpu():
     got = k2._face_tables(t(verts), t(z), t(attrs), torch.from_numpy(faces_pad.astype(np.int64)))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(n(a), n(b))
-    # The chunk bboxes (rasterizer_pallas.py:296-305), padding faces included.
-    tables, bbox = k2.raster_tables(t(verts), t(z), t(attrs), faces, chunk)
+    # The chunk bboxes (rasterizer_pallas.py:296-305), padding faces included,
+    # and the face bboxes, each whmr_tpu's face extremum -/+ the pad.
+    tables, bbox, face_bbox = k2.raster_tables(t(verts), t(z), t(attrs), faces, chunk)
     lo_hi = [n(b).reshape(2, -1, chunk) for b in want[5:]]
     expect = np.stack([lo_hi[0].min(-1) - 0.0625, lo_hi[1].max(-1) + 0.0625,
                        lo_hi[2].min(-1) - 0.0625, lo_hi[3].max(-1) + 0.0625], axis=1)
     np.testing.assert_array_equal(n(bbox), expect)
+    assert face_bbox.shape == (2, 4, faces_pad.shape[0])
+    for i, (extremum, sign) in enumerate(zip(want[5:], (-1, 1, -1, 1))):
+        np.testing.assert_array_equal(n(face_bbox)[:, i], n(extremum) + np.float32(sign * 0.0625))
     for a, b in zip(tables, want[:5]):
         np.testing.assert_array_equal(n(a), n(b))
 
@@ -170,7 +176,7 @@ def test_tile_hits_cover_every_covered_pixel():
     pixel centre of the tile is a hit."""
     verts, z, attrs, faces = _random_mesh(np.random.RandomState(5))
     res, chunk, tile_hw, origin = (32, 16), 4, (8, 8), (8.0, 0.0)
-    _, bbox = k2.raster_tables(t(verts), t(z), t(attrs), faces, chunk)
+    _, bbox, _ = k2.raster_tables(t(verts), t(z), t(attrs), faces, chunk)
     hits = n(k2.tile_hits(bbox, res, tile_hw, origin)).astype(bool)  # (B, tiles, K)
     faces_pad = jr._face_chunks(faces, chunk).reshape(-1, 3)
     for ci in range(faces_pad.shape[0] // chunk):
@@ -179,3 +185,77 @@ def test_tile_hits_cover_every_covered_pixel():
         tiles = cov.reshape(2, 4, 8, 2, 8).any(axis=(2, 4)).reshape(2, -1)
         assert not (tiles & ~hits[:, :, ci]).any(), ci
     assert not hits.all()
+
+
+def test_face_bboxes_hold_every_covered_pixel():
+    """K2's per-face cull is conservative: every pixel centre that a face
+    covers (by the plain rasterizer on that face alone) lies in the face's
+    padded bbox, the only pixels K2 tests it against; padding faces hold no
+    pixel centre. `raster_work` counts fewer pairs than the chunk cull
+    leaves."""
+    verts, z, attrs, faces = _random_mesh(np.random.RandomState(5))
+    res, chunk, origin = (32, 16), 4, (8.0, 0.0)
+    _, bbox, face_bbox = k2.raster_tables(t(verts), t(z), t(attrs), faces, chunk)
+    fb = n(face_bbox)  # (B, 4, F)
+    xs = np.arange(res[1], dtype=np.float32) + np.float32(0.5) + np.float32(origin[0])
+    ys = np.arange(res[0], dtype=np.float32) + np.float32(0.5) + np.float32(origin[1])
+    faces_pad = jr._face_chunks(faces, chunk).reshape(-1, 3)
+    covered = 0
+    for i, face in enumerate(faces_pad):
+        inside = (((xs >= fb[:, 0, i, None]) & (xs <= fb[:, 1, i, None]))[:, None, :]
+                  & ((ys >= fb[:, 2, i, None]) & (ys <= fb[:, 3, i, None]))[:, :, None])  # (B, H, W)
+        if i >= len(faces):
+            assert not inside.any(), i
+            continue
+        cov = n(tr.rasterize(t(verts), t(z), t(attrs), face[None], resolution=res, chunk=1, origin=origin).mask).astype(bool)
+        assert not (cov & ~inside).any(), i
+        covered += int(cov.sum())
+    pairs, _, _ = k2.raster_work(face_bbox, res, origin, attrs.shape[-1])
+    chunk_pairs = int(n(k2.tile_hits(bbox, res, (8, 8), origin)).sum()) * 64 * chunk
+    assert 0 < covered <= pairs < chunk_pairs
+
+
+def test_raster_work_matches_brute_force():
+    """`raster_work` (K2's bound) against a count by hand: each face's bbox
+    from its vertices, padded, against every pixel centre of an origin
+    window, with faces partly and wholly outside it and degenerate faces."""
+    rng = np.random.RandomState(6)
+    b, c, res, origin = 2, 3, (20, 28), (5.0, 3.0)
+    verts = rng.uniform(-10, 45, size=(b, 30, 2)).astype(np.float32)
+    z = rng.uniform(2, 8, size=(b, 30)).astype(np.float32)
+    attrs = rng.rand(b, 30, c).astype(np.float32)
+    faces = rng.randint(0, 30, size=(37, 3)).astype(np.int32)
+    faces[:3] = [[4, 4, 9], [7, 7, 7], [1, 2, 1]]  # degenerate
+    _, _, face_bbox = k2.raster_tables(t(verts), t(z), t(attrs), faces, 8)
+
+    pad = np.float32(0.0625)
+    xs = (np.arange(res[1], dtype=np.float32) + np.float32(0.5)) + np.float32(origin[0])
+    ys = (np.arange(res[0], dtype=np.float32) + np.float32(0.5)) + np.float32(origin[1])
+    pairs = live = 0
+    for img in range(b):
+        for face in faces:
+            p = verts[img, face]
+            e1, e2 = p[1] - p[0], p[2] - p[0]
+            if abs(float(e1[0]) * float(e2[1]) - float(e1[1]) * float(e2[0])) <= 1e-9:
+                continue
+            lo, hi = p.min(axis=0) - pad, p.max(axis=0) + pad
+            inside = ((xs >= lo[0]) & (xs <= hi[0]))[None, :] & ((ys >= lo[1]) & (ys <= hi[1]))[:, None]
+            pairs += int(inside.sum())
+            live += int(inside.any())
+    assert 0 < live < b * len(faces) - 6  # some faces lie outside the window
+    n_bytes = 4 * (live * (12 + 3 * c) + b * res[0] * res[1] * (1 + c))
+    assert k2.raster_work(face_bbox, res, origin, c) == (pairs, live, n_bytes)
+
+
+def test_launch_rejects_windows_past_the_pair_count():
+    """K2 counts a warp's pairs in int32, so a window holds at most
+    (2^31 - 1) / 32 pixels, in the wrapper as in the kernel's own check;
+    the wrapper refuses a larger one before it builds or launches."""
+    src = (Path(k2.__file__).parent.parent / "csrc" / "rasterizer.cu").read_text()
+    assert "constexpr long long kMaxWindow = 0x7fffffffLL / 32;" in src
+    assert k2._MAX_WINDOW == 0x7FFFFFFF // 32 == 8192 * 8192 - 1
+    verts, z, attrs, faces = _random_mesh(np.random.RandomState(5))
+    tables, face_bbox = k2.kernel_inputs(t(verts), t(z), t(attrs), faces, 4)
+    for res in ((8192, 8192), (1, k2._MAX_WINDOW + 1)):
+        with pytest.raises(ValueError, match="windows of 1 to"):
+            k2._launch(tables, face_bbox, res, 4, (0.0, 0.0))

@@ -19,26 +19,43 @@
 // bit for bit where one face wins; where cnt faces tie, the weight is applied
 // to the per-j sums instead of each term, a difference of a few ulps.
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 outside the tensor cores,
-// 3.35 TB/s): the work is the coverage-and-depth test of each (pixel, face)
-// pair of the chunks that pass the cull, 22 fp32 operations a pair (three
-// barycentrics at 2 mul + 2 add, three compares, depth at 3 mul + 2 add, a
-// select and a min). At the train step's render (B=64, 128x96 window,
-// 14 chunks of 1024 faces) the face tables are 64 * 14336 * 21 * 4 B = 77 MB
-// (23 us), so it is bound by operations; chip_smoke.py counts the pairs of
-// each run and prints the bound. What the design does about it: the
-// chunk-vs-tile bbox cull skips whole chunks per block (the KD-sorted
-// topology makes a chunk a compact patch of the body), each staged face
-// feeds every pixel of the tile from shared memory, and the second pass
-// (ties and attributes) runs only where the chunk's depth beats the pixel's
-// best so far. It is the simple first design: one thread per pixel, two
-// passes over each hit chunk, no warp-level face culling yet.
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
+// cores), counted from the inputs by ops/rasterizer_kernel.py::raster_work:
+// the table rows (12 + 3C floats) of the faces whose padded bbox holds a
+// pixel centre of the window, read once, and zbuf and attrs written once,
+// against 22 fp32 operations for each (pixel, face) pair whose pixel centre
+// lies in the face's padded bbox. At the train step's render (B=64, a
+// 128x96 window, 13,776 faces, most smaller than a pixel) that is bytes,
+// about 60 MB, against only 1.2e6 pairs: a face shades one or two pixels.
 //
-// Layout: grid (tiles, B), one block per (image, pixel tile), one thread per
-// pixel of the tile (row-major, tile_w fastest); threads past the image's
-// edge stage faces but write nothing. A hit chunk is staged `piece` faces at
-// a time into shared memory as 12 + 3C rows of `piece` floats: coef_a[j],
-// coef_b[j], coef_c[j], tz[j] for j = 0..2, then ta[j*C + c].
+// Design. The rule above does not depend on the order of the faces except
+// in the sums of tied winners: a pixel's depth is the least z of a covering
+// face, its chunk the earliest chunk that reaches it, and its winners every
+// covering face of that chunk at that z, summed in face order. So the work
+// goes face by face, touching only the pairs the bound counts, and the
+// order is put back where it matters:
+// 1. raster_faces, a warp per 32 faces of an image. Each lane reads its
+//    face's padded bbox (coalesced), finds the window's pixel centres inside
+//    it (a rectangle of columns and rows, from the same fp32 centres as the
+//    plain version) and, if any, stages the face's 12 edge and depth floats
+//    in shared memory. A warp scan of the lanes' pair counts lets the 32
+//    lanes take the warp's pairs in turn, so a face larger than a pixel
+//    costs no more than its pairs. A covering pair with z < 1e9 lowers two
+//    per-pixel keys with atomicMin (no value returned, so no wait):
+//    (z, face) and (z, ~face). The first gives the least depth and the
+//    first face reaching it, whose chunk is the earliest (faces of an
+//    earlier chunk have lower indices); the second the last face reaching
+//    it. A pixel whose two faces differ has tied faces.
+// 2. raster_resolve, a thread a pixel. One face at the least depth: its
+//    attributes from its row, the barycentrics recomputed with the same
+//    operations, so the same bits. Tied faces (rare at the train render):
+//    the faces from the first to the last, within the first one's chunk,
+//    walked in order, summing those that cover the pixel at that depth, as
+//    the TPU kernel does.
+// No barrier, no per-tile cull, and no pass over a face whose bbox holds no
+// pixel centre; the keys are 16 bytes a pixel, set to all ones by a memset.
+// The face tables keep the TPU kernel's struct-of-arrays layout, which the
+// face pass reads coalesced (a warp's faces are consecutive).
 //
 // Built by whmr_tpu_torch/ops/cuda_build.py (nvcc, sm_90a) into a shared
 // library with a plain C interface, loaded with ctypes by
@@ -51,20 +68,31 @@ namespace {
 
 constexpr float kBig = 1e9f;
 constexpr int kMaxAttr = 8;
-constexpr int kMaxThreads = 256;
+constexpr int kCoef = 12;           // a face's edge and depth floats
+constexpr int kFaceWarps = 8;       // warps of a raster_faces block
+constexpr int kResolveThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kNoKey = ~0ull;
+// Pixels a window may hold: a warp's 32 faces then have at most 32 * H * W
+// pairs, which its int scan and pair loop count without overflow.
+constexpr long long kMaxWindow = 0x7fffffffLL / 32;
 
 struct Args {
-  const float* bbox;  // (B, 4, K): xmin, xmax, ymin, ymax of each chunk
-  const float* ca;    // (B, 3, F)
-  const float* cb;    // (B, 3, F)
-  const float* cc;    // (B, 3, F)
-  const float* tz;    // (B, 3, F)
-  const float* ta;    // (B, 3C, F), row j*C + c
-  float* zbuf;        // (B, H, W)
-  float* attrs;       // (B, H, W, C)
-  int H, W, F, K, chunk, piece, C, tile_h, tile_w;
+  const float* fbox;         // (B, 4, F): xmin, xmax, ymin, ymax of each face, padded
+  const float* coef[4];      // (B, 3, F) each: coef_a, coef_b, coef_c, tz
+  const float* ta;           // (B, 3C, F), row j*C + c
+  unsigned long long* keys;  // (2, B, H, W): (z, face) and (z, ~face) minima
+  float* zbuf;               // (B, H, W)
+  float* attrs;              // (B, H, W, C)
+  int B, H, W, F, chunk, C;
   float ox, oy;
 };
+
+// Face f's k-th edge or depth float: coef_a[j], coef_b[j], coef_c[j], tz[j]
+// for k = 3i + j.
+__device__ __forceinline__ float coef(const Args& a, size_t img, int k, size_t f) {
+  return a.coef[k / 3][(img * 3 + (size_t)(k % 3)) * (size_t)a.F + f];
+}
 
 __device__ __forceinline__ float bary(float px, float py, float a, float b, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(px, a), __fmul_rn(py, b)), c);
@@ -75,186 +103,199 @@ __device__ __forceinline__ float depth(float b0, float b1, float b2, float z0,
   return __fadd_rn(__fadd_rn(__fmul_rn(b0, z0), __fmul_rn(b1, z1)), __fmul_rn(b2, z2));
 }
 
-// Copies faces [f0, f0 + n) of image `img` into the staged rows.
-__device__ void stage(const Args& a, float* s, size_t img, int f0, int n) {
-  const int rows = 12 + 3 * a.C;
-  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
-    const int r = i / n;
-    const int f = i - r * n;
-    const float* src;
-    if (r < 12) {
-      const float* t = r < 3 ? a.ca : r < 6 ? a.cb : r < 9 ? a.cc : a.tz;
-      src = t + (img * 3 + (size_t)(r % 3)) * (size_t)a.F;
-    } else {
-      src = a.ta + (img * 3 * (size_t)a.C + (size_t)(r - 12)) * (size_t)a.F;
+// The window's pixel centres, as the plain version makes them.
+__device__ __forceinline__ float centre(int i, float o) {
+  return __fadd_rn(__fadd_rn((float)i, 0.5f), o);
+}
+
+// Bits of z that order as z does; -0 counts as +0, as it compares equal.
+__device__ __forceinline__ unsigned ordered(float z) {
+  const unsigned u = __float_as_uint(__fadd_rn(z, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// The indices [lo, hi] of the n centres (o + i + 0.5) inside [vlo, vhi]:
+// estimated, then moved until the centres themselves say so.
+__device__ __forceinline__ void span(float vlo, float vhi, int n, float o, int& lo, int& hi) {
+  const float c0 = centre(0, o);
+  lo = (int)fminf(fmaxf(__fsub_rn(vlo, c0), 0.f), (float)(n - 1));
+  while (lo > 0 && centre(lo - 1, o) >= vlo) --lo;
+  while (lo < n && centre(lo, o) < vlo) ++lo;
+  hi = (int)fminf(fmaxf(__fsub_rn(vhi, c0), -1.f), (float)(n - 1));
+  while (hi < n - 1 && centre(hi + 1, o) <= vhi) ++hi;
+  while (hi >= 0 && centre(hi, o) > vhi) --hi;
+}
+
+// A warp per 32 faces of one image: the per-pixel keys of their covering
+// pairs.
+__global__ void __launch_bounds__(32 * kFaceWarps) raster_faces(const Args a) {
+  __shared__ float s_coef[kFaceWarps][kCoef][32];
+  __shared__ int s_first[kFaceWarps][32];   // a lane's first pair among the warp's
+  __shared__ int s_geo[kFaceWarps][3][32];  // its first column, first row, columns
+  const int lane = (int)threadIdx.x % 32, warp = (int)threadIdx.x / 32;
+  const size_t img = blockIdx.y;
+  const int f = ((int)blockIdx.x * kFaceWarps + warp) * 32 + lane;
+  const size_t F = (size_t)a.F;
+  int c0 = 0, c1 = -1, r0 = 0, r1 = -1;
+  if (f < a.F) {
+    const float* fb = a.fbox + img * 4 * F + (size_t)f;
+    span(fb[0], fb[F], a.W, a.ox, c0, c1);
+    span(fb[2 * F], fb[3 * F], a.H, a.oy, r0, r1);
+  }
+  const int nc = max(0, c1 - c0 + 1);
+  const int count = nc * max(0, r1 - r0 + 1);
+  int inc = count;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += v;
+  }
+  const int total = __shfl_sync(kFull, inc, 31);
+  if (total == 0) return;  // warp-uniform
+  s_first[warp][lane] = inc - count;
+  s_geo[warp][0][lane] = c0;
+  s_geo[warp][1][lane] = r0;
+  s_geo[warp][2][lane] = nc;
+  if (count > 0) {
+#pragma unroll
+    for (int k = 0; k < kCoef; ++k) s_coef[warp][k][lane] = coef(a, img, k, (size_t)f);
+  }
+  __syncwarp();
+  const size_t plane = (size_t)a.B * a.H * a.W;
+  const int fbase = f - lane;
+  for (int p = lane; p < total; p += 32) {
+    int lo = 0, hi = 31;  // the last lane whose pairs start at or before p
+#pragma unroll
+    for (int step = 0; step < 5; ++step) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (s_first[warp][mid] <= p) lo = mid; else hi = mid - 1;
     }
-    s[(size_t)r * a.piece + f] = src[f0 + f];
+    const int i = lo, k = p - s_first[warp][i], ncol = s_geo[warp][2][i];
+    const int col = s_geo[warp][0][i] + k % ncol, row = s_geo[warp][1][i] + k / ncol;
+    const float px = centre(col, a.ox), py = centre(row, a.oy);
+    const float* cf = &s_coef[warp][0][i];
+    float b[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) b[j] = bary(px, py, cf[j * 32], cf[(3 + j) * 32], cf[(6 + j) * 32]);
+    if (!(b[0] >= 0.f && b[1] >= 0.f && b[2] >= 0.f)) continue;
+    const float z = depth(b[0], b[1], b[2], cf[9 * 32], cf[10 * 32], cf[11 * 32]);
+    if (!(z < kBig)) continue;  // never nearer than the background (nor NaN)
+    const unsigned long long hi_bits = (unsigned long long)ordered(z) << 32;
+    const unsigned face = (unsigned)(fbase + i);
+    const size_t o = (img * a.H + (size_t)row) * a.W + (size_t)col;
+    atomicMin(&a.keys[o], hi_bits | face);
+    atomicMin(&a.keys[plane + o], hi_bits | (unsigned)~face);
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads) raster_kernel(const Args a) {
-  extern __shared__ float s[];
-  const int P = a.piece;
-  const int nbx = (a.W + a.tile_w - 1) / a.tile_w;
-  const int bx = (int)blockIdx.x % nbx;
-  const int by = (int)blockIdx.x / nbx;
+// A thread a pixel: depth, mask and attributes from the keys.
+__global__ void __launch_bounds__(kResolveThreads) raster_resolve(const Args a) {
+  const int pix = (int)blockIdx.x * kResolveThreads + (int)threadIdx.x;
+  if (pix >= a.H * a.W) return;
   const size_t img = blockIdx.y;
-  const int x = bx * a.tile_w + (int)threadIdx.x % a.tile_w;
-  const int y = by * a.tile_h + (int)threadIdx.x / a.tile_w;
-  const bool on = x < a.W && y < a.H;
-  const float px = __fadd_rn(__fadd_rn((float)x, 0.5f), a.ox);
-  const float py = __fadd_rn(__fadd_rn((float)y, 0.5f), a.oy);
-  // The tile's rectangle of pixel centres (rasterizer_pallas.py:165-168).
-  const float x0 = __fadd_rn(__fadd_rn(__fmul_rn((float)bx, (float)a.tile_w), 0.5f), a.ox);
-  const float y0 = __fadd_rn(__fadd_rn(__fmul_rn((float)by, (float)a.tile_h), 0.5f), a.oy);
-  const float x1 = __fadd_rn(x0, (float)(a.tile_w - 1));
-  const float y1 = __fadd_rn(y0, (float)(a.tile_h - 1));
-  const float* bb = a.bbox + img * 4 * (size_t)a.K;
-  const float* ta_s = s + 12 * (size_t)P;
-
-  float best_z = kBig;
-  float best[kMaxAttr];
+  const size_t o = img * a.H * a.W + (size_t)pix;
+  const unsigned long long first = a.keys[o];
+  if (first == kNoKey) {
+    a.zbuf[o] = kBig;
+    for (int c = 0; c < a.C; ++c) a.attrs[o * a.C + c] = 0.f;
+    return;
+  }
+  const size_t plane = (size_t)a.B * a.H * a.W;
+  const unsigned long long last = a.keys[plane + o];
+  const float z = unordered((unsigned)(first >> 32));
+  const int f0 = (int)(first & 0xffffffffu);
+  const int f1 = min((int)~(unsigned)(last & 0xffffffffu), (f0 / a.chunk + 1) * a.chunk - 1);
+  const float px = centre(pix % a.W, a.ox), py = centre(pix / a.W, a.oy);
+  const size_t F = (size_t)a.F;
+  const float* fb = a.fbox + img * 4 * F;
+  float acc[3][kMaxAttr];
 #pragma unroll
-  for (int c = 0; c < kMaxAttr; ++c) best[c] = 0.f;
-
-  for (int ci = 0; ci < a.K; ++ci) {
-    // Block-uniform cull: a face covers only pixel centres inside its bbox.
-    if (!(bb[a.K + ci] >= x0 && bb[ci] <= x1 && bb[3 * a.K + ci] >= y0 &&
-          bb[2 * a.K + ci] <= y1)) {
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int c = 0; c < kMaxAttr; ++c) acc[j][c] = 0.f;
+  }
+  // f0 covers the pixel at z; faces after it in its chunk (up to the last
+  // face at z) are tied winners if they do too.
+  int cnt = 0;
+  for (size_t f = (size_t)f0; f <= (size_t)f1; ++f) {
+    if (f > (size_t)f0 && !(fb[f] <= px && fb[F + f] >= px && fb[2 * F + f] <= py && fb[3 * F + f] >= py)) {
       continue;
     }
-    const int c0 = ci * a.chunk;
-
-    // Pass 1: the chunk's nearest depth over the faces covering the pixel.
-    float cz = kBig;
-    for (int q = 0; q < a.chunk; q += P) {
-      const int n = min(P, a.chunk - q);
-      __syncthreads();  // the previous piece is read by every thread
-      stage(a, s, img, c0 + q, n);
-      __syncthreads();
-      if (on) {
-        for (int f = 0; f < n; ++f) {
-          const float b0 = bary(px, py, s[f], s[3 * P + f], s[6 * P + f]);
-          const float b1 = bary(px, py, s[P + f], s[4 * P + f], s[7 * P + f]);
-          const float b2 = bary(px, py, s[2 * P + f], s[5 * P + f], s[8 * P + f]);
-          if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f) {
-            cz = fminf(cz, depth(b0, b1, b2, s[9 * P + f], s[10 * P + f], s[11 * P + f]));
-          }
-        }
-      }
+    float b[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      b[j] = bary(px, py, coef(a, img, j, f), coef(a, img, 3 + j, f), coef(a, img, 6 + j, f));
     }
-
-    // Pass 2, only where this chunk replaces the pixel's best: the faces
-    // tied at cz and their per-j attribute sums.
-    const bool need = on && cz < best_z;
-    if (!__syncthreads_or(need)) continue;
-    int cnt = 0;
-    float acc[3][kMaxAttr];
+    if (f > (size_t)f0) {
+      if (!(b[0] >= 0.f && b[1] >= 0.f && b[2] >= 0.f)) continue;
+      if (!(depth(b[0], b[1], b[2], coef(a, img, 9, f), coef(a, img, 10, f), coef(a, img, 11, f)) == z)) continue;
+    }
+    ++cnt;
+    const float* ta = a.ta + img * 3 * (size_t)a.C * F + f;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
 #pragma unroll
-      for (int c = 0; c < kMaxAttr; ++c) acc[j][c] = 0.f;
-    }
-    for (int q = 0; q < a.chunk; q += P) {
-      const int n = min(P, a.chunk - q);
-      __syncthreads();
-      stage(a, s, img, c0 + q, n);
-      __syncthreads();
-      if (need) {
-        for (int f = 0; f < n; ++f) {
-          float b[3];
-          b[0] = bary(px, py, s[f], s[3 * P + f], s[6 * P + f]);
-          b[1] = bary(px, py, s[P + f], s[4 * P + f], s[7 * P + f]);
-          b[2] = bary(px, py, s[2 * P + f], s[5 * P + f], s[8 * P + f]);
-          if (!(b[0] >= 0.f && b[1] >= 0.f && b[2] >= 0.f)) continue;
-          if (depth(b[0], b[1], b[2], s[9 * P + f], s[10 * P + f], s[11 * P + f]) != cz) continue;
-          ++cnt;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-#pragma unroll
-            for (int c = 0; c < kMaxAttr; ++c) {
-              if (c < a.C) {
-                acc[j][c] = __fadd_rn(acc[j][c],
-                                      __fmul_rn(b[j], ta_s[(size_t)(j * a.C + c) * P + f]));
-              }
-            }
-          }
-        }
-      }
-    }
-    if (need) {
-      const float w = __fdiv_rn(1.f, (float)max(cnt, 1));
-      best_z = cz;
-#pragma unroll
       for (int c = 0; c < kMaxAttr; ++c) {
-        best[c] = __fadd_rn(__fadd_rn(__fmul_rn(w, acc[0][c]), __fmul_rn(w, acc[1][c])),
-                            __fmul_rn(w, acc[2][c]));
+        if (c < a.C) acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn(b[j], ta[(size_t)(j * a.C + c) * F]));
       }
     }
   }
-
-  if (!on) return;
-  const size_t pix = (img * a.H + y) * (size_t)a.W + x;
-  a.zbuf[pix] = best_z;
-  const bool fg = best_z < 0.5f * kBig;
+  const float w = __fdiv_rn(1.f, (float)cnt);
+  a.zbuf[o] = z;
 #pragma unroll
   for (int c = 0; c < kMaxAttr; ++c) {
-    if (c < a.C) a.attrs[pix * a.C + c] = fg ? best[c] : 0.f;
+    if (c < a.C) {
+      a.attrs[o * a.C + c] = __fadd_rn(__fadd_rn(__fmul_rn(w, acc[0][c]), __fmul_rn(w, acc[1][c])),
+                                       __fmul_rn(w, acc[2][c]));
+    }
   }
-}
-
-size_t smem_bytes(int piece, int C) {
-  return (size_t)(12 + 3 * C) * (size_t)piece * sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs; the wrapper refuses more than the
-// card's per-block limit before it launches.
-size_t whmr_raster_smem_bytes(int piece, int C) { return smem_bytes(piece, C); }
-
-// Tables as ops/rasterizer_kernel.py::raster_tables makes them, contiguous
-// fp32; F = K * chunk. Returns cudaGetLastError() after the launch (0 on
-// success).
-int whmr_raster_fwd(const void* bbox, const void* ca, const void* cb, const void* cc,
-                    const void* tz, const void* ta, void* zbuf, void* attrs, int B,
-                    int H, int W, int F, int K, int chunk, int piece, int C, int tile_h,
-                    int tile_w, float ox, float oy, void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || W < 1 || K < 1 || chunk < 1 || F != K * chunk ||
-      piece < 1 || piece > chunk || C < 1 || C > kMaxAttr || tile_h < 1 || tile_w < 1 ||
-      tile_h * tile_w > kMaxThreads) {
+// Tables as ops/rasterizer_kernel.py::kernel_inputs makes them, contiguous
+// fp32; F a multiple of chunk; 1 <= C <= kMaxAttr; H * W <= kMaxWindow;
+// keys (2, B, H, W) 64-bit working memory. Enqueues a memset of the keys and
+// two kernels on `stream`; returns cudaErrorInvalidValue for arguments outside
+// these limits, else cudaGetLastError() after the launches (0 on success).
+int whmr_raster_fwd(const void* fbox, const void* ca, const void* cb, const void* cc,
+                    const void* tz, const void* ta, void* keys, void* zbuf, void* attrs, int B,
+                    int H, int W, int F, int chunk, int C, float ox, float oy, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || (long long)H * W > kMaxWindow || F < 1 ||
+      chunk < 1 || F % chunk != 0 || C < 1 || C > kMaxAttr) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
-  a.bbox = static_cast<const float*>(bbox);
-  a.ca = static_cast<const float*>(ca);
-  a.cb = static_cast<const float*>(cb);
-  a.cc = static_cast<const float*>(cc);
-  a.tz = static_cast<const float*>(tz);
+  a.fbox = static_cast<const float*>(fbox);
+  a.coef[0] = static_cast<const float*>(ca);
+  a.coef[1] = static_cast<const float*>(cb);
+  a.coef[2] = static_cast<const float*>(cc);
+  a.coef[3] = static_cast<const float*>(tz);
   a.ta = static_cast<const float*>(ta);
+  a.keys = static_cast<unsigned long long*>(keys);
   a.zbuf = static_cast<float*>(zbuf);
   a.attrs = static_cast<float*>(attrs);
+  a.B = B;
   a.H = H;
   a.W = W;
   a.F = F;
-  a.K = K;
   a.chunk = chunk;
-  a.piece = piece;
   a.C = C;
-  a.tile_h = tile_h;
-  a.tile_w = tile_w;
   a.ox = ox;
   a.oy = oy;
-  const size_t smem = smem_bytes(piece, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(keys, 0xff, 2 * sizeof(unsigned long long) * B * (size_t)H * W, st);
   if (err != cudaSuccess) return (int)err;
-  const int nbx = (W + tile_w - 1) / tile_w;
-  const int nby = (H + tile_h - 1) / tile_h;
-  const dim3 grid((unsigned)(nbx * nby), (unsigned)B);
-  raster_kernel<<<grid, tile_h * tile_w, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const int face_block = 32 * kFaceWarps;
+  raster_faces<<<dim3((unsigned)((F + face_block - 1) / face_block), (unsigned)B), face_block, 0, st>>>(a);
+  const dim3 grid((unsigned)((H * W + kResolveThreads - 1) / kResolveThreads), (unsigned)B);
+  raster_resolve<<<grid, kResolveThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,12 @@ on an H100 and what the design does about it.
 What stays plain torch here, as it stays XLA outside the `pallas_call` in
 whmr_tpu: the KD sort of the topology (`spatial_sort_faces`, numpy, once at
 load), the per-face tables of edge coefficients, depths and attributes
-(`_face_tables`), the padded per-chunk bounding boxes the kernel culls
-with, and the choice of pixel tile (`_pick_tile_hw`).
+(`_face_tables`, `kernel_inputs`), the padded per-face and per-chunk
+bounding boxes, and the choice of pixel tile (`_pick_tile_hw`). K2 works
+face by face, so the tiling shapes no work on the card; it is checked, and
+kept for `rasterize_pallas`'s signature.
+`raster_work` counts what a render needs (the kernel's bound) and
+`tile_hits` what the TPU kernel's chunk cull keeps.
 
 `rasterize_kernel(...)` has `rasterize_pallas`'s signature and result. For
 CUDA tensors it launches the kernel (counted in `rasterize_kernel.launches`)
@@ -37,19 +41,19 @@ import torch
 from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.ops.rasterizer import _BIG, RasterOut, _face_chunks, pixel_centers
 
-# Faces per chunk of the KD sort and of the kernel's cull.
+# Faces per chunk of the KD sort, of the TPU kernel's cull and of the tie
+# rule across chunks.
 DEFAULT_CHUNK = 1024
-# Chunk bboxes are widened by this many pixels so that the fp32 rounding of
-# the barycentric evaluation can never make the cull differ from the
-# unculled result (rasterizer_pallas.py:290-296).
+# Face and chunk bboxes are widened by this many pixels so that the fp32
+# rounding of the barycentric evaluation can never make a face cover a pixel
+# centre outside them (rasterizer_pallas.py:290-296).
 _BBOX_PAD = 0.0625
-# Faces staged in shared memory at a time, the attribute channels the kernel
-# keeps in registers, and the pixels of a tile (one thread each).
-_PIECE = 256
+# The attribute channels the kernel takes, the pixels of a tile, and the
+# pixels of a window (csrc/rasterizer.cu's kMaxWindow: a warp's 32 faces
+# have at most 32 * H * W pairs, which the kernel counts in int32).
 _MAX_ATTR = 8
 _MAX_TILE = 256
-# Per-block dynamic shared memory an H100 grants (232,448 bytes).
-_MAX_SMEM = 232448
+_MAX_WINDOW = (2**31 - 1) // 32
 # Images the plain version renders at once: each costs about ten
 # (H*W, chunk) fp32 temporaries.
 _REFERENCE_BYTES = 2 << 30
@@ -121,6 +125,18 @@ def _face_tables(verts_pix, verts_z, attrs, faces):
     return coef_a, coef_b, coef_c, tz.transpose(1, 2), ta_rows, fx_lo, fx_hi, fy_lo, fy_hi
 
 
+def kernel_inputs(verts_pix, verts_z, attrs, faces, chunk: int = DEFAULT_CHUNK):
+    """K2's inputs, for faces padded to whole chunks: the five face tables
+    (contiguous fp32) and the (B, 4, F) face bboxes [xmin, xmax, ymin, ymax],
+    widened by `_BBOX_PAD` (padding faces: an inverted bbox)."""
+    faces_pad = _face_chunks(np.asarray(faces), chunk).reshape(-1, 3)
+    # non_blocking: a copy from pageable memory that does not wait for the card.
+    idx = torch.from_numpy(faces_pad.astype(np.int64)).to(attrs.device, non_blocking=True)
+    *tables, fx_lo, fx_hi, fy_lo, fy_hi = _face_tables(verts_pix.float(), verts_z.float(), attrs.float(), idx)
+    face_bbox = torch.stack([fx_lo - _BBOX_PAD, fx_hi + _BBOX_PAD, fy_lo - _BBOX_PAD, fy_hi + _BBOX_PAD], dim=1)
+    return tuple(t.contiguous() for t in tables), face_bbox.contiguous()
+
+
 def _pick_tile_hw(h: int, w: int, tile_p: int) -> Tuple[int, int]:
     """Largest 2D block (tile_h, tile_w), tile_h * tile_w == tile_p, that
     tiles (h, w) evenly and is as square as possible
@@ -140,34 +156,25 @@ def _pick_tile_hw(h: int, w: int, tile_p: int) -> Tuple[int, int]:
 
 
 def raster_tables(verts_pix, verts_z, attrs, faces, chunk: int = DEFAULT_CHUNK):
-    """The kernel's inputs: faces padded to chunks, the five face tables
-    (contiguous fp32) and the (B, 4, K) chunk bboxes [xmin, xmax, ymin, ymax],
-    padded by `_BBOX_PAD` (rasterizer_pallas.py:283-305)."""
-    faces_pad = _face_chunks(np.asarray(faces), chunk).reshape(-1, 3)
-    n_chunks = faces_pad.shape[0] // chunk
-    # non_blocking: a copy from pageable memory that does not wait for the card.
-    idx = torch.from_numpy(faces_pad.astype(np.int64)).to(attrs.device, non_blocking=True)
-    ca, cb, cc, tz, ta, fx_lo, fx_hi, fy_lo, fy_hi = _face_tables(
-        verts_pix.float(), verts_z.float(), attrs.float(), idx
-    )
-    b = attrs.shape[0]
+    """The TPU kernel's inputs (rasterizer_pallas.py:283-305): `kernel_inputs`'
+    face tables, the (B, 4, K) chunk bboxes [xmin, xmax, ymin, ymax] padded
+    by `_BBOX_PAD`, and the (B, 4, F) face bboxes."""
+    tables, face_bbox = kernel_inputs(verts_pix, verts_z, attrs, faces, chunk)
+    # Rounding is monotonic, so the chunk's min of padded face bounds is the
+    # padded min of its faces' bounds, bit for bit.
+    per_chunk = face_bbox.reshape(face_bbox.shape[0], 4, -1, chunk)
     bbox = torch.stack(
-        [
-            fx_lo.reshape(b, n_chunks, chunk).amin(dim=-1) - _BBOX_PAD,
-            fx_hi.reshape(b, n_chunks, chunk).amax(dim=-1) + _BBOX_PAD,
-            fy_lo.reshape(b, n_chunks, chunk).amin(dim=-1) - _BBOX_PAD,
-            fy_hi.reshape(b, n_chunks, chunk).amax(dim=-1) + _BBOX_PAD,
-        ],
+        [per_chunk[:, 0].amin(-1), per_chunk[:, 1].amax(-1), per_chunk[:, 2].amin(-1), per_chunk[:, 3].amax(-1)],
         dim=1,
     )
-    tables = tuple(t.contiguous() for t in (ca, cb, cc, tz, ta))
-    return tables, bbox.contiguous()
+    return tables, bbox.contiguous(), face_bbox
 
 
 def tile_hits(bbox: torch.Tensor, resolution, tile_hw, origin) -> torch.Tensor:
-    """(B, tiles, K) bool: which chunk bboxes meet which tile's rectangle of
-    pixel centres (the kernel's cull, rasterizer_pallas.py:165-168, 221-226).
-    Tiles are row-major over the (ceil(H/th), ceil(W/tw)) grid."""
+    """(B, tiles, K) bool: which of the (B, 4, K) padded chunk bboxes meet
+    which tile's rectangle of pixel centres, the TPU kernel's chunk cull
+    (rasterizer_pallas.py:165-168, 221-226). Tiles are row-major over the
+    (ceil(H/th), ceil(W/tw)) grid."""
     (h, w), (th, tw) = resolution, tile_hw
     nby, nbx = -(-h // th), -(-w // tw)
     bx = torch.arange(nbx, dtype=torch.float32, device=bbox.device).repeat(nby)
@@ -180,6 +187,29 @@ def tile_hits(bbox: torch.Tensor, resolution, tile_hw, origin) -> torch.Tensor:
         (xmax >= x0[None, :, None]) & (xmin <= x1[None, :, None])
         & (ymax >= y0[None, :, None]) & (ymin <= y1[None, :, None])
     )
+
+
+def raster_work(face_bbox: torch.Tensor, resolution, origin, n_attr: int) -> Tuple[int, int, int]:
+    """What a render of these inputs needs, whatever the kernel's design:
+    the (pixel, face) pairs whose pixel centre lies in the face's padded
+    bbox (only these can be covered), the faces whose padded bbox holds a
+    pixel centre of the window (only their tables need reading), and the
+    bytes: those faces' 12 + 3C table floats read once, zbuf and attrs
+    written once. Returns (pairs, live_faces, n_bytes) as ints."""
+    h, w = resolution
+    b = face_bbox.shape[0]
+    dev = face_bbox.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5 + float(origin[0])
+    ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5 + float(origin[1])
+
+    def centres_in(axis, lo, hi):  # pixel centres c with lo <= c <= hi, per face
+        return (torch.searchsorted(axis, hi.contiguous(), right=True)
+                - torch.searchsorted(axis, lo.contiguous())).clamp(min=0)
+
+    per_face = centres_in(xs, face_bbox[:, 0], face_bbox[:, 1]) * centres_in(ys, face_bbox[:, 2], face_bbox[:, 3])
+    pairs = int(per_face.sum().item())
+    live = int((per_face > 0).sum().item())
+    return pairs, live, 4 * (live * (12 + 3 * n_attr) + b * h * w * (1 + n_attr))
 
 
 def rasterize_kernel_reference(
@@ -197,7 +227,7 @@ def rasterize_kernel_reference(
     (images, H*W, chunk) temporaries."""
     h, w = resolution
     b, _, c = attrs.shape
-    (ca, cb, cc, tz, ta), _ = raster_tables(verts_pix, verts_z, attrs, faces, chunk)
+    (ca, cb, cc, tz, ta), _ = kernel_inputs(verts_pix, verts_z, attrs, faces, chunk)
     xs, ys = pixel_centers(h, w, origin, attrs.device)
     px, py = xs[None, :, None], ys[None, :, None]
     n_pix = h * w
@@ -243,45 +273,38 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = cuda_build.load("rasterizer")
-        lib.whmr_raster_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
+        lib.whmr_raster_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ]
         lib.whmr_raster_fwd.restype = ctypes.c_int
-        lib.whmr_raster_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.whmr_raster_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
 
-def _launch(tables, bbox, resolution, chunk, tile_hw, origin) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(tables, face_bbox, resolution, chunk, origin) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on the face tables and bboxes of `kernel_inputs`. Returns
+    (zbuf, attrs)."""
     ca, cb, cc, tz, ta = tables
     h, w = resolution
-    th, tw = tile_hw
     b, _, n_faces = ca.shape
     c = ta.shape[1] // 3
     if not 1 <= c <= _MAX_ATTR:
         raise ValueError(f"rasterize_kernel takes 1 to {_MAX_ATTR} attribute channels, got {c}")
-    if not 1 <= th * tw <= _MAX_TILE:
-        raise ValueError(f"rasterize_kernel takes tiles of 1 to {_MAX_TILE} pixels, got {th}x{tw}")
     if not 1 <= b <= 65535:
         raise ValueError(f"rasterize_kernel takes 1 to 65535 images, got {b}")
-    piece = min(chunk, _PIECE)
+    if not 1 <= h * w <= _MAX_WINDOW:
+        raise ValueError(f"rasterize_kernel takes windows of 1 to {_MAX_WINDOW} pixels, got {h}x{w}")
     lib = _kernel_lib()
-    smem = lib.whmr_raster_smem_bytes(piece, c)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"rasterize_kernel: {c} attribute channels need {smem} B of shared memory, "
-            f"more than the {_MAX_SMEM} B a block may use"
-        )
-    zbuf = torch.empty((b, h, w), dtype=torch.float32, device=ca.device)
-    attrs = torch.empty((b, h, w, c), dtype=torch.float32, device=ca.device)
-    with torch.cuda.device(ca.device):
-        stream = torch.cuda.current_stream(ca.device).cuda_stream
+    dev = ca.device
+    keys = torch.empty((2, b, h, w), dtype=torch.int64, device=dev)
+    zbuf = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    attrs = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.whmr_raster_fwd(
-            bbox.data_ptr(), ca.data_ptr(), cb.data_ptr(), cc.data_ptr(), tz.data_ptr(),
-            ta.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
-            b, h, w, n_faces, n_faces // chunk, chunk, piece, c, th, tw,
-            float(origin[0]), float(origin[1]), stream,
+            face_bbox.data_ptr(), ca.data_ptr(), cb.data_ptr(), cc.data_ptr(), tz.data_ptr(), ta.data_ptr(),
+            keys.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
+            b, h, w, n_faces, chunk, c, float(origin[0]), float(origin[1]), stream,
         )
     if err != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: cudaError {err}")
@@ -304,10 +327,11 @@ def rasterize_kernel(
     depths, (B, V, C) attributes and (F, 3) numpy faces -> RasterOut at
     `resolution` (H, W), rendering the window at `origin`.
 
-    Pixel tiles are (tile_h, tile_w) blocks, by default the most square
-    even tiling of tile_p pixels; with `tile_hw` given, H and W need not be
-    multiples of it. CUDA tensors launch K2, CPU tensors run the plain
-    version; nothing falls back from one to the other.
+    The pixel tiling is `rasterize_pallas`'s: (tile_h, tile_w) blocks, by
+    default the most square even tiling of tile_p pixels (ValueError if
+    there is none); with `tile_hw` given, H and W need not be multiples of
+    it. The result does not depend on it. CUDA tensors launch K2, CPU
+    tensors run the plain version; nothing falls back from one to the other.
     """
     dev = attrs.device
     if not (verts_pix.device == verts_z.device == dev):
@@ -316,9 +340,11 @@ def rasterize_kernel(
         return rasterize_kernel_reference(verts_pix, verts_z, attrs, faces, resolution, chunk, origin)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_kernel runs on cuda or cpu tensors, got {dev}")
-    tile_hw = tuple(tile_hw) if tile_hw is not None else _pick_tile_hw(*resolution, tile_p)
-    tables, bbox = raster_tables(verts_pix, verts_z, attrs, faces, chunk)
-    zbuf, out = _launch(tables, bbox, resolution, chunk, tile_hw, origin)
+    th, tw = tuple(tile_hw) if tile_hw is not None else _pick_tile_hw(*resolution, tile_p)
+    if not 1 <= th * tw <= _MAX_TILE:
+        raise ValueError(f"rasterize_kernel takes tiles of 1 to {_MAX_TILE} pixels, got {th}x{tw}")
+    tables, face_bbox = kernel_inputs(verts_pix, verts_z, attrs, faces, chunk)
+    zbuf, out = _launch(tables, face_bbox, resolution, chunk, origin)
     return RasterOut(attrs=out, zbuf=zbuf, mask=zbuf < _BIG * 0.5)
 
 
