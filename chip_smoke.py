@@ -61,6 +61,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    host snapshot alone into fresh and into reused host pages, and the
    checkpoint's size. Its run directories live under build/ and are deleted
    at the end.
+8. CLI path: the two entry points a user runs, in-process through their
+   `main(argv)`, at full width (WHMRConfig(), ViT-B, 3 MAF steps) on a
+   dataset written to disk from seed 0: 192 PNG images of 480x360 and a
+   label npz in the reference schema (keypoints from the GT joints, GT
+   camera rotations and world poses), GT part maps of 64 of the images and
+   a COCO keypoint json for them. `whmr-train` runs 3 steps of B=64 in
+   bf16 with augmentation on (decode, crop and warp on the BatchLoader's
+   threads) and the GT render on; the launches of that run are K2 once a
+   step and no K1 or K3, every metric record is finite and the epoch
+   checkpoint is on disk. `whmr-eval` then runs three times on that
+   checkpoint, fp32 with --misc vit.attn_impl pallas, at B=32: the metric
+   protocol over the 192 crops, --eval_parts and --coco_ap over the 64;
+   each run launches K1 12 times a forward batch, none on tensor cores,
+   and never K2; every printed metric is finite and in its range, and the
+   metric protocol's PVE/MPJPE/PA-MPJPE equal run_evaluation's on the same
+   model and batches within 1e-4 relative. Times: whmr-train's ms a step
+   beside the bare step and the fit step, the loader's host ms a batch,
+   the eval's crops/s by protocol and the parts render's ms a batch through
+   `ops/rasterizer.py::rasterize`. Its run directory lives under build/
+   and is deleted at the end.
 
 Output: a line with the card's name and power limit, one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}.
@@ -68,6 +88,7 @@ Output: a line with the card's name and power limit, one JSON line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import signal
@@ -75,6 +96,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -82,7 +104,9 @@ import torch.nn.functional as F
 
 from whmr_tpu_torch.config import WHMRConfig
 from whmr_tpu_torch.data.assets import synthetic_smpl_assets
+from whmr_tpu_torch.data import loader as loader_module
 from whmr_tpu_torch.data.loader import BatchLoader, device_prefetch
+from whmr_tpu_torch.data.npz_dataset import NpzDataset
 from whmr_tpu_torch.models.smpl import smpl_forward
 from whmr_tpu_torch.models.whmr import WHMR, build_model
 from whmr_tpu_torch.ops import attention as k1
@@ -90,7 +114,12 @@ from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.ops import rasterizer_kernel as k2
 from whmr_tpu_torch.ops.iuv import iuv_img2map
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
+from whmr_tpu_torch.inference import eval_cli
+from whmr_tpu_torch.inference import evaluate as evaluate_module
+from whmr_tpu_torch.inference.part_segm import render_part_segmentation
+from whmr_tpu_torch.training import cli as train_cli
 from whmr_tpu_torch.training import train_step as ts
+from whmr_tpu_torch.training import trainer as trainer_module
 from whmr_tpu_torch.training.gt_renderer import build_render_consts, raster_inputs
 from whmr_tpu_torch.training.trainer import Trainer
 from whmr_tpu_torch.utils import profiling
@@ -100,6 +129,7 @@ from whmr_tpu_torch.utils.testing import (
     make_example_train_batch,
     make_keypoints_consistent,
     make_ragged_raster_case,
+    write_npz_dataset,
 )
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
@@ -127,6 +157,13 @@ UNREACHED = ("cam_model.", "conv.", "transformer_decoder.", "est_Tz.", "global_o
 # bf16 step-1 loss against the fp32 twin's, relative: about 10x the reading
 # on an H100 80GB HBM3 (4.1e-5).
 LOSS_RTOL = 5e-4
+# The CLI path: 192 images on disk (3 batches of 64: whmr-train's loader
+# drops a partial batch), GT part maps and COCO annotations for 64;
+# whmr-train at B=64 for 3 steps, whmr-eval at B=32.
+CLI_IMAGES, CLI_ANNOTATED = 192, 64
+CLI_TRAIN_BATCH, CLI_TRAIN_STEPS, CLI_EVAL_BATCH = 64, 3, 32
+# whmr-eval's metric protocol against run_evaluation called directly.
+CLI_METRIC_RTOL = 1e-4
 
 
 # Each kernel wrapper's launch count, by the name the kernels line gives it.
@@ -223,6 +260,14 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    import cv2
+
+    try:
+        import yaml
+        have_yaml = f"PyYAML {yaml.__version__}"
+    except ImportError:
+        have_yaml = "no PyYAML (load_yaml and --cfg_file need it)"
+    log(f"host: cv2 {cv2.__version__}; {have_yaml}")
     return smi
 
 
@@ -814,6 +859,7 @@ def phase_trainer(cfg, consts, train_ms):
         del fresh
 
         epoch_s = marks["val1"] - marks["epoch1_start"]
+        fit_ms = epoch_s / TRAINER_STEPS_PER_EPOCH * 1e3
         t = {r["step"]: r["time"] for r in train_recs}
         log(f"trainer: Trainer.fit {epoch_s / TRAINER_STEPS_PER_EPOCH * 1e3:.2f} ms a step over epoch 2 "
             f"(host clock, {TRAINER_STEPS_PER_EPOCH} steps incl. the step-4 async save's snapshot and a metric "
@@ -867,7 +913,7 @@ def phase_trainer(cfg, consts, train_ms):
         phase_preemption(cfg, root, loader, loader_factory)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches, fit_ms
 
 
 def phase_preemption(cfg, root, loader, loader_factory):
@@ -909,6 +955,205 @@ def phase_preemption(cfg, root, loader, loader_factory):
         f"resume ran the epoch's last batch to step {resumed.state.step}")
 
 
+class _TimedTrainer(Trainer):
+    """The port's Trainer with its opt-in profiling.Timer set, so that
+    whmr-train's loop records its host spans ("step", "log", "save")."""
+
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.timer = profiling.Timer()
+        _TimedTrainer.last = self
+
+
+class _TimedLoader(BatchLoader):
+    """BatchLoader whose batches the training loop waits for under the
+    trainer's "loader" span (device_prefetch takes 2 ahead)."""
+
+    def __iter__(self):
+        it = super().__iter__()
+        while True:
+            with _TimedTrainer.last.timer.span("loader"):
+                batch = next(it, None)
+            if batch is None:
+                return
+            yield batch
+
+
+def _subset_npz(src, dst, n):
+    labels = np.load(src)
+    np.savez(dst, **{k: labels[k][:n] for k in labels.files})
+    return str(dst)
+
+
+def _timed(module, name, out):
+    """Wrap module.name so that its synchronised wall seconds land in out[name]."""
+    real = getattr(module, name)
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return result
+    return run
+
+
+def phase_cli(consts, train_ms, fit_ms):
+    """whmr-train and whmr-eval of the port, in-process through main(argv),
+    at full width on a dataset on disk. Returns the launches of each run."""
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        paths = write_npz_dataset(root / "data", consts, CLI_IMAGES, seed=0, n_parts=CLI_ANNOTATED,
+                                  n_coco=CLI_ANNOTATED)
+        annotated = _subset_npz(paths["npz"], root / "data" / "annotated.npz", CLI_ANNOTATED)
+        log(f"cli: {CLI_IMAGES} PNGs of 480x360 and their labels, {CLI_ANNOTATED} GT part maps and a COCO json "
+            f"written in {time.perf_counter() - t0:.1f} s")
+
+        # whmr-train: the real decode, crop and warp on the loader's threads,
+        # augmentation on, the GT render on, bf16.
+        argv = ["--train_npz", paths["npz"], "--img_dir", paths["img_dir"], "--log_dir", str(root), "--name", "train",
+                "--bf16", "--batch_size", str(CLI_TRAIN_BATCH), "--num_epochs", "1",
+                "--steps_per_epoch", str(CLI_TRAIN_STEPS), "--log_every", "1", "--device", "cuda"]
+        sigterm = signal.getsignal(signal.SIGTERM)  # main installs a preemption handler
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(trainer_module, "Trainer", _TimedTrainer))
+            stack.enter_context(mock.patch.object(loader_module, "BatchLoader", _TimedLoader))
+            stack.callback(signal.signal, signal.SIGTERM, sigterm)
+            reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches["whmr-train"] = n = read_launches()
+        log(f"cli: whmr-train {' '.join(argv)}: {train_s:.1f} s in main; launches {n}")
+        check(trainer.state.step == CLI_TRAIN_STEPS, f"whmr-train ended at step {trainer.state.step}")
+        check(n["rasterizer"] == CLI_TRAIN_STEPS, f"K2 launched {n['rasterizer']} times in whmr-train, want 1 a step")
+        check(n["attention"] == 0 and n["fused_attention"] == 0, "K1 or K3 launched in whmr-train")
+        recs = [r for r in _records(trainer.metrics.path) if "loss" in r]
+        check([r["step"] for r in recs] == list(range(1, CLI_TRAIN_STEPS + 1)),
+              f"whmr-train metric records at steps {[r['step'] for r in recs]}")
+        check(all(np.isfinite(v) for r in recs for k, v in r.items() if k not in ("step", "time")),
+              "non-finite whmr-train metric records")
+        ckpt = root / "train" / "checkpoints" / str(CLI_TRAIN_STEPS) / "payload.pt"
+        check(ckpt.is_file(), f"no whmr-train checkpoint at {ckpt}")
+        spans = trainer.timer.records
+        gaps = [(recs[i + 1]["time"] - recs[i]["time"]) * 1e3 for i in range(len(recs) - 1)]
+        log(f"cli: whmr-train losses {[round(r['loss'], 3) for r in recs]}; checkpoint {ckpt.stat().st_size / 1e9:.3f} GB; "
+            f"{np.mean(gaps):.2f} ms a step between metric records {[round(g, 2) for g in gaps]} (host clock, each "
+            f"with a metric read-back), against the bare train_step's {train_ms:.2f} ms and Trainer.fit's "
+            f"{fit_ms:.2f} ms a step in this run; host ms by span: "
+            + "; ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in spans.items()))
+        del trainer
+        _TimedTrainer.last = None
+        torch.cuda.empty_cache()
+
+        # The loader alone: one epoch of B=64 batches off disk, decode and
+        # augmentation on its 8 threads, nothing consuming on the card.
+        ds = NpzDataset(WHMRConfig(), paths["npz"], paths["img_dir"], is_train=True, device_norm=True)
+        loader = BatchLoader(ds, CLI_TRAIN_BATCH)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader)
+        log(f"cli: the loader alone: {(time.perf_counter() - t0) / n_batches * 1e3:.1f} ms a batch of "
+            f"{CLI_TRAIN_BATCH} (PNG decode, augmentation, crop; 8 threads; {n_batches} batches)")
+
+        # whmr-eval: three protocols on the checkpoint, fp32, K1 in its CUDA-core variant.
+        common = ["--checkpoint", str(root / "train" / "checkpoints"), "--img_dir", paths["img_dir"],
+                  "--batch_size", str(CLI_EVAL_BATCH), "--device", "cuda", "--misc", "vit.attn_impl", "pallas"]
+        runs = {
+            "metric": (["--dataset_npz", paths["npz"], "--result_file", str(root / "result.npz")], CLI_IMAGES),
+            "parts": (["--dataset_npz", annotated, "--eval_parts", "--parts_dir", paths["parts_dir"]], CLI_ANNOTATED),
+            "coco_ap": (["--dataset_npz", annotated, "--coco_ap", "--coco_gt", paths["coco_gt"]], CLI_ANNOTATED),
+        }
+        loop_s, results = {}, {}
+        for name, (extra, crops) in runs.items():
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(mock.patch.object(evaluate_module, "run_evaluation",
+                                             _timed(evaluate_module, "run_evaluation", loop_s)))
+                for fn in ("run_parts_evaluation", "run_coco_ap_evaluation"):
+                    stack.enter_context(mock.patch.object(eval_cli, fn, _timed(eval_cli, fn, loop_s)))
+                reset_launches()
+                t0 = time.perf_counter()
+                results[name] = eval_cli.main(common + extra)
+                torch.cuda.synchronize()
+                main_s = time.perf_counter() - t0
+                launches[f"whmr-eval {name}"] = n = read_launches()
+            batches = -(-crops // CLI_EVAL_BATCH)
+            loop = loop_s.pop(next(iter(loop_s)))
+            log(f"cli: whmr-eval {name} over {crops} crops: {crops / loop:.1f} crops/s in the protocol's loop "
+                f"({loop:.2f} s; {main_s:.1f} s in main with the model build and the checkpoint read); launches {n}")
+            check(n["attention"] == 12 * batches, f"whmr-eval {name}: K1 launched {n['attention']} times, want 12 a "
+                  f"forward batch ({batches} batches)")
+            check(n["attention.mma"] == 0, f"whmr-eval {name}: a fp32 K1 launch took the tensor-core variant")
+            check(n["rasterizer"] == 0 and n["fused_attention"] == 0, f"whmr-eval {name}: K2 or K3 launched")
+        m, p, c = results["metric"], results["parts"], results["coco_ap"]
+        check(m["count"] == CLI_IMAGES and all(np.isfinite(m[k]) and 0 <= m[k] < 1e4 for k in ("pve", "mpjpe", "pa_mpjpe")),
+              f"whmr-eval metric protocol: {m}")
+        check(all(0.0 <= p[k] <= 1.0 for k in ("mask_accuracy", "mask_f1", "parts_accuracy")), f"parts: {p}")
+        check(all(0.0 <= c[k] <= 1.0 for k in ("AP", "AP50", "AP75", "AR")), f"COCO AP: {c}")
+        dump = np.load(root / "result.npz")
+        check(dump["pred"].shape == (CLI_IMAGES, 14, 3) and bool(np.isfinite(dump["pred"]).all()), "result file")
+
+        # The metric protocol against run_evaluation called directly on the
+        # same model and batches.
+        args = eval_cli.build_parser().parse_args(common + runs["metric"][0])
+        cfg = WHMRConfig().with_overrides(**{"vit.attn_impl": "pallas"})
+        model, consts_e, assets = eval_cli.load_model_state(args, cfg)
+        ds = NpzDataset(cfg, paths["npz"], paths["img_dir"], is_train=False)
+
+        def batches():
+            for hb in BatchLoader(ds, CLI_EVAL_BATCH, shuffle=False, drop_last=False):
+                b, _ = eval_cli.device_eval_batch(hb, extra_keys=("pose", "betas", "gender", "global_pose"),
+                                                  device="cuda")
+                b["valid"] = torch.from_numpy(hb["has_smpl"]).cuda()
+                yield b
+
+        direct = evaluate_module.run_evaluation(cfg, model, consts_e, batches(), log_every=0)
+        for k in ("pve", "mpjpe", "pa_mpjpe"):
+            rel = abs(m[k] - direct[k]) / abs(direct[k])
+            check(rel <= CLI_METRIC_RTOL, f"whmr-eval {k} {m[k]} vs run_evaluation's {direct[k]}: relative {rel}")
+        log(f"cli: whmr-eval metric protocol PVE {m['pve']:.3f}, MPJPE {m['mpjpe']:.3f}, PA-MPJPE {m['pa_mpjpe']:.3f} mm, "
+            f"equal to run_evaluation's on the same model and batches within {CLI_METRIC_RTOL} relative; parts "
+            f"mask accuracy {p['mask_accuracy']:.4f}, F1 {p['mask_f1']:.4f}, parts accuracy {p['parts_accuracy']:.4f}; "
+            f"COCO AP {c['AP']:.4f}, AP50 {c['AP50']:.4f}, AR {c['AR']:.4f}")
+
+        # The parts render alone, at the eval batch, through rasterize.
+        with torch.no_grad():
+            hb = next(iter(BatchLoader(ds, CLI_EVAL_BATCH, shuffle=False)))
+            b, _ = eval_cli.device_eval_batch(hb, device="cuda")
+            last = eval_cli._forward(model, consts_e, b)["smpl_out"][-1]
+            res = (cfg.img_res[1], cfg.img_res[0])
+            render_ms = _synced_ms(lambda: render_part_segmentation(assets, last["verts"], last["pred_cam"], res), 5)
+        log(f"cli: parts render B={CLI_EVAL_BATCH} at {res[0]}x{res[1]} through ops/rasterizer.py::rasterize: "
+            f"{render_ms:.2f} ms a batch (host clock, synchronised: the chunk windows are read back once a call)")
+
+        # K1 as whmr-eval runs it: fp32 at the eval batch, CUDA-core variant.
+        shape = (CLI_EVAL_BATCH, 12, 192, 64)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v = (torch.randn(*shape, device="cuda", generator=g) for _ in range(3))
+        check(k1._variant(shape, torch.float32) != "mma", "fp32 K1 would take the tensor-core variant")
+        err = (k1.attention(q, k, v) - k1.attention_reference(q, k, v)).abs().max().item()
+        check(err <= 2e-5, f"fp32 K1 at {shape} disagrees with its plain version by {err}")
+        ms = cuda_ms(lambda: k1.attention(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: k1.attention_reference(q, k, v), 20)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        bound_ms, bound_by = attention_bound_ms(shape, torch.float32)
+        log(f"cli: K1 {shape} fp32 (whmr-eval's launches, CUDA-core variant): {ms * 1e3:.2f} us ({bound_ms / ms:.1%} of "
+            f"the bound), max_abs_err {err:.3g}; bound {bound_ms * 1e3:.2f} us ({bound_by}); plain {plain_ms * 1e3:.1f} us; "
+            f"scaled_dot_product_attention {library_ms * 1e3:.2f} us")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     smi = phase_device()
     k2_ptxas = phase_build()
@@ -924,12 +1169,19 @@ def main():
     kernels.append(k2_entry)
     del model, inputs, train_model, state, batch
     torch.cuda.empty_cache()
-    fit_launches = phase_trainer(train_cfg, train_consts, train_ms)
+    fit_launches, fit_ms = phase_trainer(train_cfg, train_consts, train_ms)
+    cli_launches = phase_cli(train_consts, train_ms, fit_ms)
     # K3 runs on no path: its count is the forwards', the train steps' and
     # the fit's, each read over its run (and each checked to be 0).
     k3 = next(k for k in kernels if k["name"] == "fused_attention")
     k3["launches"] += train_launches["fused_attention"] + fit_launches["fused_attention"]
     k3["mma_launches"] += train_launches["fused_attention.mma"] + fit_launches["fused_attention.mma"]
+    # The CLI path's launches: whmr-eval's K1 (on CUDA cores, fp32) and
+    # whmr-train's K2, each read over its run; K3's, checked to be 0.
+    for k in kernels:
+        k["launches"] += sum(n[k["name"]] for n in cli_launches.values())
+        if k["mma_launches"] is not None:
+            k["mma_launches"] += sum(n[f"{k['name']}.mma"] for n in cli_launches.values())
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

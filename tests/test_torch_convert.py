@@ -5,7 +5,8 @@
   `load_state_dict`; every key the converter consumes comes back bit-equal.
   The constant buffers it skips (convert.py:53-61) are out of scope.
 - Hygiene: no module of whmr_tpu_torch, and not chip_smoke.py, imports jax,
-  flax, optax, orbax or whmr_tpu; `build_model` without a device raises where CUDA is
+  flax, optax, orbax or whmr_tpu (not even its jax-free config and data
+  modules); `build_model` without a device raises where CUDA is
   absent; chip_smoke.py fails without a card and without the package.
 """
 
@@ -53,19 +54,38 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-def test_port_imports_no_jax_nor_whmr_tpu():
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "whmr_tpu"}
+
+
+def _forbidden_imports(path: Path):
+    return set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_port_imports_no_jax_nor_whmr_tpu(tmp_path):
     files = sorted((ROOT / "whmr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     names = {str(f.relative_to(ROOT)) for f in files}
-    # the trainer slice's modules are among those scanned
+    # the trainer slice's and the data/CLI slice's modules are among those scanned
     assert names >= {
         "whmr_tpu_torch/utils/checkpoint.py", "whmr_tpu_torch/data/loader.py",
         "whmr_tpu_torch/utils/profiling.py", "whmr_tpu_torch/ops/procrustes.py",
         "whmr_tpu_torch/inference/evaluate.py", "whmr_tpu_torch/inference/eval_cli.py",
-        "whmr_tpu_torch/training/trainer.py",
+        "whmr_tpu_torch/training/trainer.py", "whmr_tpu_torch/config.py",
+        "whmr_tpu_torch/data/kp_formats.py", "whmr_tpu_torch/data/augment.py",
+        "whmr_tpu_torch/data/npz_dataset.py", "whmr_tpu_torch/training/cli.py",
+        "whmr_tpu_torch/inference/part_segm.py", "whmr_tpu_torch/inference/coco_eval.py",
+        "whmr_tpu_torch/inference/agora.py", "whmr_tpu_torch/data/coco.py", "whmr_tpu_torch/data/tcmr.py",
+        "whmr_tpu_torch/data/fits_dict.py", "whmr_tpu_torch/data/data_cli.py",
     }
     for f in files:
-        bad = set(_imported_roots(f)) & {"jax", "jaxlib", "flax", "optax", "orbax", "whmr_tpu"}
+        bad = _forbidden_imports(f)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+    # the scan catches a copy that reaches back into whmr_tpu's jax-free
+    # modules, at the top of the file or inside a function
+    for line in ("from whmr_tpu.config import WHMRConfig", "import whmr_tpu.data.augment as A",
+                 "def f():\n    from whmr_tpu.data.kp_formats import FORMATS"):
+        copy = tmp_path / "copy.py"
+        copy.write_text(line + "\n")
+        assert _forbidden_imports(copy) == {"whmr_tpu"}, line
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -9,7 +9,8 @@
   is a copy.
 - The weight bridge: a torch .pt written from `state_dict_from_flax`, a bare
   ViT backbone and a port checkpoint directory load through
-  `load_pretrained`.
+  `load_pretrained`; so does the published checkpoint's key set
+  (`real_ckpt_manifest`), strictly, in both packages.
 - The whole slice: whmr_tpu's `Trainer.fit` and the port's over the same 2
   batches (2 epochs of 1 step, the LR decayed after epoch 1), from the same
   weights, with dropout off on both sides as in test_torch_train_step.py:
@@ -30,6 +31,7 @@ import torch
 
 from whmr_tpu.parallel import make_mesh
 from whmr_tpu.training.trainer import Trainer as JTrainer
+from whmr_tpu.utils.real_ckpt_manifest import manifest_state_dict
 from whmr_tpu.utils.testing import tiny_config as j_tiny_config
 from whmr_tpu_torch.models import layers as tlayers
 from whmr_tpu_torch.training import train_step as tts
@@ -262,7 +264,7 @@ def jax_run(tmp_path_factory):
     counts = [int(leaf.count) for leaf in jax.tree_util.tree_leaves(jt.state.opt_state, is_leaf=has_count)
               if has_count(leaf)]
     yield {"variables": variables, "records": records, "step": int(jt.state.step), "epoch": jt.epoch,
-           "counts": counts}
+           "counts": counts, "trainer": jt}
     shutil.rmtree(run_dir, ignore_errors=True)  # its two epoch checkpoints
 
 
@@ -324,3 +326,27 @@ def test_load_pretrained(tmp_path, jax_run):
     os.makedirs(tmp_path / "orbax" / "0" / "default")
     with pytest.raises(FileNotFoundError, match="orbax"):
         dst.load_pretrained(str(tmp_path / "orbax"))
+
+
+def test_load_pretrained_reference_manifest(tmp_path, jax_run):
+    """The published checkpoint's key set (the manifest, at tiny_config)
+    loads strictly: the 61 constant buffers are dropped as whmr_tpu drops
+    them, and every port parameter is matched and loaded. whmr_tpu's loader
+    takes the same file. A truly unknown key, or a wrong shape, still raises."""
+    sd = {k: torch.from_numpy(v) for k, v in manifest_state_dict(j_tiny_config(), seed=3).items()}
+    pt = tmp_path / "w-hmr-p-vitpose_checkpoint.pt"
+    torch.save({"model": sd}, pt)
+    tr = _trainer(tmp_path / "port")
+    assert tr.load_pretrained(str(pt), strict=True) == len(tr.state.params)
+    for k, v in tr.model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, sd[k]), k
+    jt = jax_run["trainer"]  # whmr_tpu's Trainer at tiny_config (its run is over)
+    assert jt.load_pretrained(str(pt), strict=True) == len(jax.tree_util.tree_leaves(jt.state.params))
+
+    key = "regressor.0.decpose.weight"
+    for label, bad in (("unknown", {**sd, "regressor.0.not_a_layer.weight": torch.zeros(3)}),
+                       ("shape", {**sd, key: torch.zeros(3)})):
+        torch.save({"model": bad}, tmp_path / f"{label}.pt")
+        with pytest.raises(ValueError, match="1 unmatched/mismatched keys"):
+            tr.load_pretrained(str(tmp_path / f"{label}.pt"), strict=True)

@@ -6,7 +6,9 @@ singleton (`core/cfgs.py:22`, `configs/pymaf_config.yaml`). Field names and
 defaults are identical to whmr_tpu's, so one config value means the same
 model in both packages; `tests/test_torch_assets.py` holds them equal.
 
-YAML loading and the CLI layering arrive with the CLI slices.
+YAML loading (`load_yaml`, the reference-style schema) and the CLIs'
+layering (`config_from_args`: a `--cfg_file` base, then dotted `--misc`
+overrides) are copies of whmr_tpu's too.
 """
 
 from __future__ import annotations
@@ -104,6 +106,21 @@ class ViTConfig:
         h = (self.img_size[0] + 2 * self.patch_padding - self.patch_size) // self.patch_size + 1
         w = (self.img_size[1] + 2 * self.patch_padding - self.patch_size) // self.patch_size + 1
         return (h, w)
+
+
+def vit_base() -> "ViTConfig":
+    return ViTConfig()
+
+
+def vit_large() -> "ViTConfig":
+    """ViTPose-L geometry (embed 1024, depth 24, heads 16)."""
+    return ViTConfig(embed_dim=1024, depth=24, num_heads=16, drop_path_rate=0.5, remat=True)
+
+
+def vit_huge() -> "ViTConfig":
+    """ViTPose-H geometry (embed 1280, depth 32, heads 16) — the scale the
+    'model' mesh axis (Megatron TP) is sized for."""
+    return ViTConfig(embed_dim=1280, depth=32, num_heads=16, drop_path_rate=0.55, remat=True)
 
 
 @dataclass(frozen=True)
@@ -221,3 +238,77 @@ def _replace_path(obj: Any, parts: list, value: Any) -> Any:
     child = getattr(obj, parts[0])
     return replace(obj, **{parts[0]: _replace_path(child, parts[1:], value)})
 
+
+def default_config() -> WHMRConfig:
+    return WHMRConfig()
+
+
+def load_yaml(path: str) -> WHMRConfig:
+    """Load a reference-style YAML (best-effort key mapping) into WHMRConfig."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    cfg = WHMRConfig()
+    mapping = {
+        ("MODEL", "PyMAF", "BACKBONE"): "pymaf.backbone",
+        ("MODEL", "PyMAF", "N_ITER"): "pymaf.n_iter",
+        ("MODEL", "PyMAF", "AUX_SUPV_ON"): "pymaf.aux_supv_on",
+        ("MODEL", "PyMAF", "DEPTH_SUPV_ON"): "pymaf.depth_supv_on",
+        ("MODEL", "PyMAF", "FOCAL_SUPV_ON"): "pymaf.focal_supv_on",
+        ("TRAIN", "STAGE"): "train.stage",
+        ("TRAIN", "BATCH_SIZE"): "train.batch_size",
+        ("SOLVER", "BASE_LR"): "train.base_lr",
+        ("SOLVER", "MAX_ITER"): "train.max_iter",
+        ("LOSS", "KP_2D_W"): "loss.kp_2d_w",
+        ("LOSS", "KP_3D_W"): "loss.kp_3d_w",
+        ("LOSS", "SHAPE_W"): "loss.shape_w",
+        ("LOSS", "POSE_W"): "loss.pose_w",
+        ("LOSS", "VERT_W"): "loss.vert_w",
+        ("LOSS", "POINT_REGRESSION_WEIGHTS"): "loss.point_regression_weights",
+        ("LOSS", "FOCAL_WEIGHTS"): "loss.focal_weights",
+        ("LOSS", "INDEX_WEIGHTS"): "loss.index_weights",
+        ("LOSS", "PART_WEIGHTS"): "loss.part_weights",
+        ("LOSS", "OPENPOSE_TRAIN_WEIGHT"): "loss.openpose_train_weight",
+        ("LOSS", "GT_TRAIN_WEIGHT"): "loss.gt_train_weight",
+        ("SOLVER", "GAMMA"): "train.lr_gamma",
+        ("SOLVER", "EPOCHS"): "train.lr_decay_epochs",
+        # backbone-scale section (net-new: the reference configures ViT via a
+        # vendored mmcv file, ViTPose_base_coco_256x192.py:43-57; here the
+        # L/H variants are first-class YAML — see configs/vit-l.yaml)
+        ("MODEL", "VIT", "EMBED_DIM"): "vit.embed_dim",
+        ("MODEL", "VIT", "DEPTH"): "vit.depth",
+        ("MODEL", "VIT", "NUM_HEADS"): "vit.num_heads",
+        ("MODEL", "VIT", "MLP_RATIO"): "vit.mlp_ratio",
+        ("MODEL", "VIT", "DROP_PATH_RATE"): "vit.drop_path_rate",
+        ("MODEL", "VIT", "REMAT"): "vit.remat",
+    }
+    overrides = {}
+    for keys, dst in mapping.items():
+        node = raw
+        ok = True
+        for k in keys:
+            if not isinstance(node, dict) or k not in node:
+                ok = False
+                break
+            node = node[k]
+        if ok:
+            overrides[dst] = node
+    if "MODEL" in raw and "PyMAF" in raw.get("MODEL", {}):
+        mlp = raw["MODEL"]["PyMAF"].get("MLP_DIM")
+        if mlp:
+            cfg = replace(cfg, pymaf=replace(cfg.pymaf, mlp_dim=tuple(mlp)))
+    return cfg.with_overrides(**overrides)
+
+
+def config_from_args(args) -> WHMRConfig:
+    """Shared CLI config resolution: `--cfg_file` YAML base (reference-style
+    schema, incl. the MODEL.VIT L/H sections) + dotted `--misc` overrides.
+    Mirrors the reference's parse_args_extend layering (core/cfgs.py:72-96)
+    across every console script."""
+    cfg_file = getattr(args, "cfg_file", None)
+    cfg = load_yaml(cfg_file) if cfg_file else WHMRConfig()
+    misc = getattr(args, "misc", None)
+    if misc:
+        cfg = cfg.with_overrides(**dict(zip(misc[::2], misc[1::2])))
+    return cfg

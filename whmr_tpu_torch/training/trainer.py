@@ -39,8 +39,8 @@ from whmr_tpu_torch.models.whmr import build_model
 from whmr_tpu_torch.training.gt_renderer import build_render_consts
 from whmr_tpu_torch.training.train_step import AdamState, create_train_state, train_step, train_step_accum
 from whmr_tpu_torch.utils import profiling
-from whmr_tpu_torch.utils.checkpoint import CheckpointManager
-from whmr_tpu_torch.utils.convert import merge_trees
+from whmr_tpu_torch.utils.checkpoint import CheckpointManager, missing_checkpoint_message
+from whmr_tpu_torch.utils.convert import is_known_buffer, merge_trees
 
 _TORCH_CKPT_SUFFIXES = (".pt", ".pth", ".tar", ".ckpt")
 
@@ -233,9 +233,12 @@ class Trainer:
         ViT backbone such as `vitpose-b-multi-coco.pth`, whose `backbone.*`
         keys map under `feature_extractor.`) or a checkpoint directory of
         this port. The port keeps the reference's key names, so the
-        state_dict maps directly. Only matching-shape leaves present in the
-        checkpoint are overwritten; optimizer state, step and epoch stay
-        fresh. Returns the number of parameter leaves loaded.
+        state_dict maps directly, once the reference's constant buffers
+        (`is_known_buffer`) are dropped. Only matching-shape leaves present
+        in the checkpoint are overwritten; optimizer state, step and epoch
+        stay fresh. With `strict`, a key of another shape or one that is
+        neither this model's nor a known buffer raises. Returns the number
+        of parameter leaves loaded.
         """
         if path.endswith(_TORCH_CKPT_SUFFIXES):
             # A reference checkpoint may pickle its options next to the
@@ -248,7 +251,11 @@ class Trainer:
                     sd = ckpt[key]
                     break
             model_keys = self.model.state_dict().keys()
+            # The reference's constant buffers (SMPL, Dmaps, init_*,
+            # points_grid, ...) are not this model's to load: drop them, as
+            # whmr_tpu's convert_whmr_checkpoint skips them.
             sd = {k.replace("module.", ""): v for k, v in sd.items()}
+            sd = {k: v for k, v in sd.items() if not is_known_buffer(k)}
             sd = {
                 ("feature_extractor." + k if k not in model_keys and "feature_extractor." + k in model_keys
                  else k): v
@@ -259,11 +266,7 @@ class Trainer:
                 raise FileNotFoundError(f"no checkpoint at {path}")
             payload = CheckpointManager(path).restore()
             if payload is None:
-                raise FileNotFoundError(
-                    f"no checkpoint of this port (<step>/payload.pt) under {path}. An orbax directory "
-                    "written by whmr_tpu cannot be read without orbax: export its variables to a torch "
-                    ".pt with whmr_tpu_torch.utils.convert.state_dict_from_flax"
-                )
+                raise FileNotFoundError(missing_checkpoint_message(path))
             sd = {**payload["params"], **payload.get("batch_stats", {})}
 
         live = self.model.state_dict()

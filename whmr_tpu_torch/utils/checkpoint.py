@@ -116,6 +116,15 @@ def _read(path: str, template: Optional[Dict[str, Any]] = None) -> Dict[str, Any
     return _like(payload, template)
 
 
+def missing_checkpoint_message(path: str) -> str:
+    """What a load says when `path` holds no checkpoint of this port."""
+    return (
+        f"no checkpoint of this port (<step>/payload.pt) under {path}. An orbax directory "
+        "written by whmr_tpu cannot be read without orbax: export its variables to a torch "
+        ".pt with whmr_tpu_torch.utils.convert.state_dict_from_flax"
+    )
+
+
 class CheckpointManager:
     def __init__(self, save_dir: str, max_to_keep: int = 5):
         self.save_dir = os.path.abspath(save_dir)

@@ -15,6 +15,10 @@ Layout maps, each the exact inverse of whmr_tpu's:
 - BatchNorm:       scale/bias + mean/var -> weight/bias + running_mean/var
                    (num_batches_tracked, a step counter, is set to 0)
 - LayerNorm:       scale/bias            -> weight/bias
+
+`KNOWN_BUFFER_PATTERNS` / `is_known_buffer` are a copy of whmr_tpu's
+(`whmr_tpu/utils/convert.py:53-75`): the keys of a reference checkpoint that
+are constants in this design, which a load drops before it matches the rest.
 """
 
 from __future__ import annotations
@@ -43,6 +47,22 @@ def conv1d_pointwise_from_flax(kernel) -> np.ndarray:
 
 
 _RESNET50_LAYERS = (3, 4, 6, 3)
+
+# state_dict keys of a reference checkpoint that are CONSTANTS in this design
+# (they ride BodyConsts or are baked in), not parameters to load:
+KNOWN_BUFFER_PATTERNS = (
+    r"\.smpl\.",                    # per-Regressor SMPL buffers (whmr.py:59)
+    r"\.vertex_joint_selector\.",   # smplx VertexJointSelector buffer
+    r"\.init_(pose|shape|cam)$",    # mean-param buffers (whmr.py:68-70,287)
+    r"(^|\.)points_grid$",          # fixed sample grid (whmr.py:347)
+    r"\.Dmap[01]?$",                # mesh-downsampling buffers (whmr.py:97-98)
+    r"num_batches_tracked$",        # torch BN step counters
+    r"^cam_model\.backbone\.fc\.",  # ImageNet classifier head, unused
+)
+
+
+def is_known_buffer(key: str) -> bool:
+    return any(re.search(p, key) for p in KNOWN_BUFFER_PATTERNS)
 
 
 def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

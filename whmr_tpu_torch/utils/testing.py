@@ -151,3 +151,96 @@ def make_ragged_raster_case(batch: int = 2, seed: int = 0):
     base = rng.randint(0, 60, (130, 3))
     faces = np.concatenate([base[:100], base[70:80], base[:10], base[100:]]).astype(np.int32)
     return (verts, z, attrs, faces), {"resolution": (37, 29), "chunk": 64, "origin": (3.0, 2.0)}
+
+
+def write_npz_dataset(root, consts, n: int, seed: int = 0, img_wh=(480, 360), n_parts: int = 0,
+                      n_coco: int = 0) -> Dict[str, str]:
+    """A dataset on disk in the reference schema, made from `seed`: `n` PNG
+    images of `img_wh` under root/images and root/labels.npz with imgname,
+    center, scale, pose, shape, has_smpl, S, part, openpose (the keypoints are
+    the GT SMPL joints through a plausible crop camera, as
+    `make_keypoints_consistent` makes them, taken back to image pixels),
+    cam_rotmat and global_pose. With `n_parts`, the first n_parts images get
+    a GT part map under root/parts (labels 1..6 in a blob over the bbox);
+    with `n_coco`, root/person_keypoints.json holds the first n_coco images
+    and their COCO keypoint annotations. `consts` is the port's BodyConsts (any device). Returns
+    the paths by name."""
+    import json
+    import os
+
+    import cv2
+    import torch
+
+    from whmr_tpu_torch.config import FOCAL_LENGTH
+    from whmr_tpu_torch.data.kp_formats import convert_kps
+    from whmr_tpu_torch.models.smpl import smpl_forward
+    from whmr_tpu_torch.ops.rotation import batch_rodrigues
+
+    rng = np.random.RandomState(seed)
+    w, h = img_wh
+    paths = {"root": str(root), "img_dir": os.path.join(root, "images"), "npz": os.path.join(root, "labels.npz")}
+    os.makedirs(paths["img_dir"], exist_ok=True)
+    names = [f"img_{i:05d}.png" for i in range(n)]
+    for name in names:
+        # smooth colour fields with grain, so a PNG's decode costs what a
+        # photo's does more than a noise image's
+        low = rng.randint(0, 256, (h // 8, w // 8, 3)).astype(np.uint8)
+        img = cv2.resize(low, (w, h), interpolation=cv2.INTER_LINEAR)
+        img = np.clip(img.astype(np.int16) + rng.randint(-8, 9, img.shape), 0, 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(paths["img_dir"], name), img)
+
+    center = np.stack([rng.uniform(0.4 * w, 0.6 * w, n), rng.uniform(0.4 * h, 0.6 * h, n)], -1).astype(np.float32)
+    scale = rng.uniform(0.6, 0.8, n).astype(np.float32) * h / 200.0
+    pose = (rng.randn(n, 72) * 0.2).astype(np.float32)
+    betas = (rng.randn(n, 10) * 0.5).astype(np.float32)
+    dev = consts.smpl.v_template.device
+    with torch.no_grad():
+        rot = batch_rodrigues(torch.from_numpy(pose).to(dev).reshape(-1, 3)).reshape(-1, 24, 3, 3)
+        joints = smpl_forward(consts.smpl, torch.from_numpy(betas).to(dev), rot).joints.cpu().numpy()
+    joints = joints.astype(np.float64)
+    s = rng.uniform(0.7, 1.1, (n, 1, 1))
+    t = np.concatenate([rng.uniform(-0.1, 0.1, (n, 1, 2)), 2.0 * FOCAL_LENGTH / (256.0 * s)], axis=-1)
+    pj = joints + t
+    crop_px = FOCAL_LENGTH * pj[..., :2] / pj[..., 2:3] + 128.0
+    # crop pixel -> image pixel: the inverse of augment.get_transform at 256
+    img_px = center[:, None, :] + (crop_px / 256.0 - 0.5) * (200.0 * scale)[:, None, None]
+    kp = np.concatenate([img_px, np.ones((n, 49, 1))], -1).astype(np.float32)
+    cam_aa = rng.randn(n, 3) * 0.1
+    cam_rotmat = np.stack([cv2.Rodrigues(a)[0] for a in cam_aa]).astype(np.float32)
+    global_pose = pose.copy()
+    for i in range(n):
+        r = cam_rotmat[i].T.astype(np.float64) @ cv2.Rodrigues(pose[i, :3].astype(np.float64))[0]
+        global_pose[i, :3] = cv2.Rodrigues(r)[0][:, 0]
+    np.savez(
+        paths["npz"], imgname=np.array(names), center=center, scale=scale, pose=pose, shape=betas,
+        has_smpl=np.ones(n, np.float32),
+        S=np.concatenate([joints[:, 25:], np.ones((n, 24, 1))], -1).astype(np.float32),
+        part=kp[:, 25:], openpose=kp[:, :25], cam_rotmat=cam_rotmat, global_pose=global_pose,
+    )
+
+    if n_parts:
+        paths["parts_dir"] = os.path.join(root, "parts")
+        os.makedirs(paths["parts_dir"], exist_ok=True)
+        for i in range(n_parts):
+            part = np.zeros((h, w), np.uint8)
+            half = int(100 * scale[i] * 0.6)
+            x0, y0 = int(center[i, 0]) - half // 2, int(center[i, 1]) - half
+            part[max(y0, 0):y0 + 2 * half, max(x0, 0):x0 + half] = rng.randint(1, 7, (2 * half, half))[
+                max(-y0, 0):, max(-x0, 0):][: h - max(y0, 0), : w - max(x0, 0)]
+            cv2.imwrite(os.path.join(paths["parts_dir"], names[i]), part)
+    if n_coco:
+        kp17 = convert_kps(kp[:n_coco].copy(), "spin", "coco")
+        kp17[..., 2] *= 2.0  # COCO's "labeled and visible"
+        lo, hi = kp17[..., :2].min(axis=1), kp17[..., :2].max(axis=1)
+        anns = [{
+            "id": i + 1, "image_id": i, "category_id": 1, "iscrowd": 0, "num_keypoints": 17,
+            "keypoints": kp17[i].reshape(-1).tolist(),
+            "bbox": [float(lo[i, 0]), float(lo[i, 1]), float(hi[i, 0] - lo[i, 0]), float(hi[i, 1] - lo[i, 1])],
+            "area": float((hi[i, 0] - lo[i, 0]) * (hi[i, 1] - lo[i, 1])),
+        } for i in range(n_coco)]
+        paths["coco_gt"] = os.path.join(root, "person_keypoints.json")
+        with open(paths["coco_gt"], "w") as f:
+            json.dump({"images": [{"id": i, "file_name": name, "width": w, "height": h}
+                                  for i, name in enumerate(names[:n_coco])],
+                       "annotations": anns, "categories": [{"id": 1, "name": "person"}]}, f)
+    return paths
