@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels.
 3. Kernels: holds each kernel against its plain PyTorch version on the
    card. K1 (attention) and K3 (fused_attention, the same function in K3's
-   launch shape) at the forward's shapes, ViT-H's head (D = 80), the
+   launch shape) at the forward's shapes and the serving batch (B=8),
+   ViT-H's head (D = 80), the
    tensor-core edge N = 256, N = 300 and D = 20 (bf16 on CUDA cores) and a
    ragged shape, in bf16 and fp32, at one bf16 ulp; checks that every bf16
    launch at N <= 256 and D % 8 == 0 took the tensor-core variant and no
@@ -80,7 +81,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside the bare step and the fit step, the loader's host ms a batch,
    the eval's crops/s by protocol and the parts render's ms a batch through
    `ops/rasterizer.py::rasterize`. Its run directory lives under build/
-   and is deleted at the end.
+   and is deleted after phase 9, which serves its checkpoint.
+9. Serving path: the serving CLIs at full width, bf16, vit.attn_impl
+   "pallas" (K1 on tensor cores), 8 crops a device batch, on the checkpoint
+   of phase 8, in-process through main(argv) or `serve_cli.build_server`
+   on 127.0.0.1 port 0. `whmr-export --camcalib split`, and `--eval` with
+   --check (12 K1 launches in the program's batch, all on tensor cores: the
+   custom op `whmr::attention` is in the graph). The live
+   `whmr-serve` (coalescing and CamCalib on) takes 64 requests with their
+   boxes from 8 client threads over 24 composite frames of 1-3 people, a
+   `/reload` in the middle; every response equals run_image on its request
+   within SERVE_VERTS_TOL, /stats counts the requests and crops, coalesced
+   requests and CamCalib cache hits, K1 launches 12 a device batch (and the
+   reload's warm-up) on tensor cores; 4 requests in flight at shutdown are
+   all answered by the drain. The bundle `whmr-serve` on the split bundle:
+   the bundle against the live pipeline on the same crops, 12 K1 launches a
+   batch, 16 requests held as above. `whmr-eval --bundle` over 48 of phase
+   8's crops equals run_evaluation of the live model in bf16 within 1e-4
+   relative. `whmr-demo` renders overlays of 4 images, each person's box
+   changed, and `whmr-video` tracks two walking bodies over 12 frames with
+   stable ids. Times: requests/s, crops/s and p50/p99 latency of both
+   servers, device batches and crops a batch, CamCalib calls, export time
+   and bundle size, the demo's img/s, K1 at (8, 12, 192, 64), held against
+   its plain version through attention() and the custom op, beside
+   scaled_dot_product_attention.
 
 Output: a line with the card's name and power limit, one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}.
@@ -89,12 +113,17 @@ Output: a line with the card's name and power limit, one JSON line
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import os
+import pickle
 import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 from unittest import mock
 
@@ -114,8 +143,11 @@ from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.ops import rasterizer_kernel as k2
 from whmr_tpu_torch.ops.iuv import iuv_img2map
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
-from whmr_tpu_torch.inference import eval_cli
+from whmr_tpu_torch.inference import demo_cli, eval_cli, export_cli, serve_cli, video_cli
 from whmr_tpu_torch.inference import evaluate as evaluate_module
+from whmr_tpu_torch.inference.detector_eval import composite_frames, posed_vertices
+from whmr_tpu_torch.inference.pipeline import Detection
+from whmr_tpu_torch.inference.renderer import render_overlay
 from whmr_tpu_torch.inference.part_segm import render_part_segmentation
 from whmr_tpu_torch.training import cli as train_cli
 from whmr_tpu_torch.training import train_step as ts
@@ -164,6 +196,21 @@ CLI_IMAGES, CLI_ANNOTATED = 192, 64
 CLI_TRAIN_BATCH, CLI_TRAIN_STEPS, CLI_EVAL_BATCH = 64, 3, 32
 # whmr-eval's metric protocol against run_evaluation called directly.
 CLI_METRIC_RTOL = 1e-4
+# The serving path: bf16, vit.attn_impl="pallas", 8 crops a device batch;
+# the live server takes 64 requests from 8 clients (4 more in flight at the
+# drain), the bundle server 16; whmr-video a 12-frame clip.
+SERVE_PEOPLE = 8
+SERVE_MISC = ["vit.attn_impl", "pallas"]
+SERVE_REQUESTS, SERVE_CLIENTS, BUNDLE_REQUESTS, DRAIN_REQUESTS = 64, 8, 16, 4
+SERVE_EVAL_CROPS = 48  # whmr-eval --bundle: 6 batches of phase_cli's dataset
+VIDEO_FRAMES = 12
+# Vertices of a served response against run_image on the same request (its
+# boxes as sent, in fp32), and of the exported program against the live
+# pipeline, m. Both read 0 on an H100 80GB HBM3 (the same kernels on the
+# same rows; earlier runs, which fed run_image the boxes in fp64, read
+# 2.75e-5 to 1.55e-4 m), against the bf16 forward's limit of 1e-3 m: 1e-6
+# m, fp32's resolution at the body's scale, in place of 10x a zero reading.
+SERVE_VERTS_TOL = 1e-6
 
 
 # Each kernel wrapper's launch count, by the name the kernels line gives it.
@@ -334,11 +381,12 @@ def phase_kernels():
     """K1 and K3 against their plain version; returns {(shape, dtype): max_abs_err}."""
     errs = {}
     g = torch.Generator(device="cuda").manual_seed(0)
-    # The forward's heads at B=16 and 48, ViT-H's (D = 80), a ragged one and
-    # D = 20 (no multiple of 8: CUDA cores in bf16); in bf16 also the
-    # tensor-core edge N = 256 and N = 300, above it. (fp32 at (256, 128)
-    # needs more shared memory than a block has.)
-    shapes = [(16, 12, 192, 64), (48, 12, 192, 64), (16, 16, 192, 80), (3, 2, 63, 32), (3, 2, 50, 20)]
+    # The forward's heads at B=8 (the serving batch), 16 and 48, ViT-H's
+    # (D = 80), a ragged one and D = 20 (no multiple of 8: CUDA cores in
+    # bf16); in bf16 also the tensor-core edge N = 256 and N = 300, above it.
+    # (fp32 at (256, 128) needs more shared memory than a block has.)
+    shapes = [(8, 12, 192, 64), (16, 12, 192, 64), (48, 12, 192, 64), (16, 16, 192, 80), (3, 2, 63, 32),
+              (3, 2, 50, 20)]
     for dtype in (torch.bfloat16, torch.float32):
         for shape in shapes + ([(2, 4, 256, 128), (2, 2, 300, 64)] if dtype == torch.bfloat16 else []):
             q, k, v = (torch.randn(*shape, device="cuda", generator=g, dtype=dtype) for _ in range(3))
@@ -1001,156 +1049,602 @@ def _timed(module, name, out):
     return run
 
 
-def phase_cli(consts, train_ms, fit_ms):
+def phase_cli(consts, train_ms, fit_ms, root):
     """whmr-train and whmr-eval of the port, in-process through main(argv),
-    at full width on a dataset on disk. Returns the launches of each run."""
-    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    at full width on a dataset written under `root` (which main deletes
+    after phase_serve, which serves the checkpoint trained here). Returns
+    the launches of each run and the dataset's paths."""
     launches = {}
-    try:
-        t0 = time.perf_counter()
-        paths = write_npz_dataset(root / "data", consts, CLI_IMAGES, seed=0, n_parts=CLI_ANNOTATED,
-                                  n_coco=CLI_ANNOTATED)
-        annotated = _subset_npz(paths["npz"], root / "data" / "annotated.npz", CLI_ANNOTATED)
-        log(f"cli: {CLI_IMAGES} PNGs of 480x360 and their labels, {CLI_ANNOTATED} GT part maps and a COCO json "
-            f"written in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths = write_npz_dataset(root / "data", consts, CLI_IMAGES, seed=0, n_parts=CLI_ANNOTATED,
+                              n_coco=CLI_ANNOTATED)
+    annotated = _subset_npz(paths["npz"], root / "data" / "annotated.npz", CLI_ANNOTATED)
+    log(f"cli: {CLI_IMAGES} PNGs of 480x360 and their labels, {CLI_ANNOTATED} GT part maps and a COCO json "
+        f"written in {time.perf_counter() - t0:.1f} s")
 
-        # whmr-train: the real decode, crop and warp on the loader's threads,
-        # augmentation on, the GT render on, bf16.
-        argv = ["--train_npz", paths["npz"], "--img_dir", paths["img_dir"], "--log_dir", str(root), "--name", "train",
-                "--bf16", "--batch_size", str(CLI_TRAIN_BATCH), "--num_epochs", "1",
-                "--steps_per_epoch", str(CLI_TRAIN_STEPS), "--log_every", "1", "--device", "cuda"]
-        sigterm = signal.getsignal(signal.SIGTERM)  # main installs a preemption handler
+    # whmr-train: the real decode, crop and warp on the loader's threads,
+    # augmentation on, the GT render on, bf16.
+    argv = ["--train_npz", paths["npz"], "--img_dir", paths["img_dir"], "--log_dir", str(root), "--name", "train",
+            "--bf16", "--batch_size", str(CLI_TRAIN_BATCH), "--num_epochs", "1",
+            "--steps_per_epoch", str(CLI_TRAIN_STEPS), "--log_every", "1", "--device", "cuda"]
+    sigterm = signal.getsignal(signal.SIGTERM)  # main installs a preemption handler
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(trainer_module, "Trainer", _TimedTrainer))
+        stack.enter_context(mock.patch.object(loader_module, "BatchLoader", _TimedLoader))
+        stack.callback(signal.signal, signal.SIGTERM, sigterm)
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches["whmr-train"] = n = read_launches()
+    log(f"cli: whmr-train {' '.join(argv)}: {train_s:.1f} s in main; launches {n}")
+    check(trainer.state.step == CLI_TRAIN_STEPS, f"whmr-train ended at step {trainer.state.step}")
+    check(n["rasterizer"] == CLI_TRAIN_STEPS, f"K2 launched {n['rasterizer']} times in whmr-train, want 1 a step")
+    check(n["attention"] == 0 and n["fused_attention"] == 0, "K1 or K3 launched in whmr-train")
+    recs = [r for r in _records(trainer.metrics.path) if "loss" in r]
+    check([r["step"] for r in recs] == list(range(1, CLI_TRAIN_STEPS + 1)),
+          f"whmr-train metric records at steps {[r['step'] for r in recs]}")
+    check(all(np.isfinite(v) for r in recs for k, v in r.items() if k not in ("step", "time")),
+          "non-finite whmr-train metric records")
+    ckpt = root / "train" / "checkpoints" / str(CLI_TRAIN_STEPS) / "payload.pt"
+    check(ckpt.is_file(), f"no whmr-train checkpoint at {ckpt}")
+    spans = trainer.timer.records
+    gaps = [(recs[i + 1]["time"] - recs[i]["time"]) * 1e3 for i in range(len(recs) - 1)]
+    log(f"cli: whmr-train losses {[round(r['loss'], 3) for r in recs]}; checkpoint {ckpt.stat().st_size / 1e9:.3f} GB; "
+        f"{np.mean(gaps):.2f} ms a step between metric records {[round(g, 2) for g in gaps]} (host clock, each "
+        f"with a metric read-back), against the bare train_step's {train_ms:.2f} ms and Trainer.fit's "
+        f"{fit_ms:.2f} ms a step in this run; host ms by span: "
+        + "; ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in spans.items()))
+    del trainer
+    _TimedTrainer.last = None
+    torch.cuda.empty_cache()
+
+    # The loader alone: one epoch of B=64 batches off disk, decode and
+    # augmentation on its 8 threads, nothing consuming on the card.
+    ds = NpzDataset(WHMRConfig(), paths["npz"], paths["img_dir"], is_train=True, device_norm=True)
+    loader = BatchLoader(ds, CLI_TRAIN_BATCH)
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in loader)
+    log(f"cli: the loader alone: {(time.perf_counter() - t0) / n_batches * 1e3:.1f} ms a batch of "
+        f"{CLI_TRAIN_BATCH} (PNG decode, augmentation, crop; 8 threads; {n_batches} batches)")
+
+    # whmr-eval: three protocols on the checkpoint, fp32, K1 in its CUDA-core variant.
+    common = ["--checkpoint", str(root / "train" / "checkpoints"), "--img_dir", paths["img_dir"],
+              "--batch_size", str(CLI_EVAL_BATCH), "--device", "cuda", "--misc", "vit.attn_impl", "pallas"]
+    runs = {
+        "metric": (["--dataset_npz", paths["npz"], "--result_file", str(root / "result.npz")], CLI_IMAGES),
+        "parts": (["--dataset_npz", annotated, "--eval_parts", "--parts_dir", paths["parts_dir"]], CLI_ANNOTATED),
+        "coco_ap": (["--dataset_npz", annotated, "--coco_ap", "--coco_gt", paths["coco_gt"]], CLI_ANNOTATED),
+    }
+    loop_s, results = {}, {}
+    for name, (extra, crops) in runs.items():
         with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.object(trainer_module, "Trainer", _TimedTrainer))
-            stack.enter_context(mock.patch.object(loader_module, "BatchLoader", _TimedLoader))
-            stack.callback(signal.signal, signal.SIGTERM, sigterm)
+            stack.enter_context(mock.patch.object(evaluate_module, "run_evaluation",
+                                         _timed(evaluate_module, "run_evaluation", loop_s)))
+            for fn in ("run_parts_evaluation", "run_coco_ap_evaluation"):
+                stack.enter_context(mock.patch.object(eval_cli, fn, _timed(eval_cli, fn, loop_s)))
             reset_launches()
             t0 = time.perf_counter()
-            trainer = train_cli.main(argv)
+            results[name] = eval_cli.main(common + extra)
             torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
-            launches["whmr-train"] = n = read_launches()
-        log(f"cli: whmr-train {' '.join(argv)}: {train_s:.1f} s in main; launches {n}")
-        check(trainer.state.step == CLI_TRAIN_STEPS, f"whmr-train ended at step {trainer.state.step}")
-        check(n["rasterizer"] == CLI_TRAIN_STEPS, f"K2 launched {n['rasterizer']} times in whmr-train, want 1 a step")
-        check(n["attention"] == 0 and n["fused_attention"] == 0, "K1 or K3 launched in whmr-train")
-        recs = [r for r in _records(trainer.metrics.path) if "loss" in r]
-        check([r["step"] for r in recs] == list(range(1, CLI_TRAIN_STEPS + 1)),
-              f"whmr-train metric records at steps {[r['step'] for r in recs]}")
-        check(all(np.isfinite(v) for r in recs for k, v in r.items() if k not in ("step", "time")),
-              "non-finite whmr-train metric records")
-        ckpt = root / "train" / "checkpoints" / str(CLI_TRAIN_STEPS) / "payload.pt"
-        check(ckpt.is_file(), f"no whmr-train checkpoint at {ckpt}")
-        spans = trainer.timer.records
-        gaps = [(recs[i + 1]["time"] - recs[i]["time"]) * 1e3 for i in range(len(recs) - 1)]
-        log(f"cli: whmr-train losses {[round(r['loss'], 3) for r in recs]}; checkpoint {ckpt.stat().st_size / 1e9:.3f} GB; "
-            f"{np.mean(gaps):.2f} ms a step between metric records {[round(g, 2) for g in gaps]} (host clock, each "
-            f"with a metric read-back), against the bare train_step's {train_ms:.2f} ms and Trainer.fit's "
-            f"{fit_ms:.2f} ms a step in this run; host ms by span: "
-            + "; ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in spans.items()))
-        del trainer
-        _TimedTrainer.last = None
-        torch.cuda.empty_cache()
+            main_s = time.perf_counter() - t0
+            launches[f"whmr-eval {name}"] = n = read_launches()
+        batches = -(-crops // CLI_EVAL_BATCH)
+        loop = loop_s.pop(next(iter(loop_s)))
+        log(f"cli: whmr-eval {name} over {crops} crops: {crops / loop:.1f} crops/s in the protocol's loop "
+            f"({loop:.2f} s; {main_s:.1f} s in main with the model build and the checkpoint read); launches {n}")
+        check(n["attention"] == 12 * batches, f"whmr-eval {name}: K1 launched {n['attention']} times, want 12 a "
+              f"forward batch ({batches} batches)")
+        check(n["attention.mma"] == 0, f"whmr-eval {name}: a fp32 K1 launch took the tensor-core variant")
+        check(n["rasterizer"] == 0 and n["fused_attention"] == 0, f"whmr-eval {name}: K2 or K3 launched")
+    m, p, c = results["metric"], results["parts"], results["coco_ap"]
+    check(m["count"] == CLI_IMAGES and all(np.isfinite(m[k]) and 0 <= m[k] < 1e4 for k in ("pve", "mpjpe", "pa_mpjpe")),
+          f"whmr-eval metric protocol: {m}")
+    check(all(0.0 <= p[k] <= 1.0 for k in ("mask_accuracy", "mask_f1", "parts_accuracy")), f"parts: {p}")
+    check(all(0.0 <= c[k] <= 1.0 for k in ("AP", "AP50", "AP75", "AR")), f"COCO AP: {c}")
+    dump = np.load(root / "result.npz")
+    check(dump["pred"].shape == (CLI_IMAGES, 14, 3) and bool(np.isfinite(dump["pred"]).all()), "result file")
 
-        # The loader alone: one epoch of B=64 batches off disk, decode and
-        # augmentation on its 8 threads, nothing consuming on the card.
-        ds = NpzDataset(WHMRConfig(), paths["npz"], paths["img_dir"], is_train=True, device_norm=True)
-        loader = BatchLoader(ds, CLI_TRAIN_BATCH)
+    # The metric protocol against run_evaluation called directly on the
+    # same model and batches.
+    args = eval_cli.build_parser().parse_args(common + runs["metric"][0])
+    cfg = WHMRConfig().with_overrides(**{"vit.attn_impl": "pallas"})
+    model, consts_e, assets = eval_cli.load_model_state(args, cfg)
+    ds = NpzDataset(cfg, paths["npz"], paths["img_dir"], is_train=False)
+
+    def batches():
+        for hb in BatchLoader(ds, CLI_EVAL_BATCH, shuffle=False, drop_last=False):
+            b, _ = eval_cli.device_eval_batch(hb, extra_keys=("pose", "betas", "gender", "global_pose"),
+                                              device="cuda")
+            b["valid"] = torch.from_numpy(hb["has_smpl"]).cuda()
+            yield b
+
+    direct = evaluate_module.run_evaluation(cfg, model, consts_e, batches(), log_every=0)
+    for k in ("pve", "mpjpe", "pa_mpjpe"):
+        rel = abs(m[k] - direct[k]) / abs(direct[k])
+        check(rel <= CLI_METRIC_RTOL, f"whmr-eval {k} {m[k]} vs run_evaluation's {direct[k]}: relative {rel}")
+    log(f"cli: whmr-eval metric protocol PVE {m['pve']:.3f}, MPJPE {m['mpjpe']:.3f}, PA-MPJPE {m['pa_mpjpe']:.3f} mm, "
+        f"equal to run_evaluation's on the same model and batches within {CLI_METRIC_RTOL} relative; parts "
+        f"mask accuracy {p['mask_accuracy']:.4f}, F1 {p['mask_f1']:.4f}, parts accuracy {p['parts_accuracy']:.4f}; "
+        f"COCO AP {c['AP']:.4f}, AP50 {c['AP50']:.4f}, AR {c['AR']:.4f}")
+
+    # The parts render alone, at the eval batch, through rasterize.
+    with torch.no_grad():
+        hb = next(iter(BatchLoader(ds, CLI_EVAL_BATCH, shuffle=False)))
+        b, _ = eval_cli.device_eval_batch(hb, device="cuda")
+        last = eval_cli._forward(model, consts_e, b)["smpl_out"][-1]
+        res = (cfg.img_res[1], cfg.img_res[0])
+        render_ms = _synced_ms(lambda: render_part_segmentation(assets, last["verts"], last["pred_cam"], res), 5)
+    log(f"cli: parts render B={CLI_EVAL_BATCH} at {res[0]}x{res[1]} through ops/rasterizer.py::rasterize: "
+        f"{render_ms:.2f} ms a batch (host clock, synchronised: the chunk windows are read back once a call)")
+
+    # K1 as whmr-eval runs it: fp32 at the eval batch, CUDA-core variant.
+    shape = (CLI_EVAL_BATCH, 12, 192, 64)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=g) for _ in range(3))
+    check(k1._variant(shape, torch.float32) != "mma", "fp32 K1 would take the tensor-core variant")
+    err = (k1.attention(q, k, v) - k1.attention_reference(q, k, v)).abs().max().item()
+    check(err <= 2e-5, f"fp32 K1 at {shape} disagrees with its plain version by {err}")
+    ms = cuda_ms(lambda: k1.attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: k1.attention_reference(q, k, v), 20)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    bound_ms, bound_by = attention_bound_ms(shape, torch.float32)
+    log(f"cli: K1 {shape} fp32 (whmr-eval's launches, CUDA-core variant): {ms * 1e3:.2f} us ({bound_ms / ms:.1%} of "
+        f"the bound), max_abs_err {err:.3g}; bound {bound_ms * 1e3:.2f} us ({bound_by}); plain {plain_ms * 1e3:.1f} us; "
+        f"scaled_dot_product_attention {library_ms * 1e3:.2f} us")
+    del model
+    torch.cuda.empty_cache()
+    return launches, paths, m
+
+
+def _post(url, body, timeout=600):
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _request(img, dets):
+    """An /infer body: the image and its people's boxes [cx, cy, size]."""
+    buf = io.BytesIO()
+    np.savez(buf, image=img, bboxes=np.array([[d.cx, d.cy, d.size] for d in dets], np.float32))
+    return buf.getvalue()
+
+
+def _serve_frames():
+    """24 composite frames of 480x360 with 1, 2 or 3 posed bodies each (8
+    of each) and their GT boxes, from seeds 1-3."""
+    frames, boxes = [], []
+    for k in (1, 2, 3):
+        f, g = composite_frames(8, people_per_frame=k, seed=k)
+        frames += f
+        boxes += g
+    return frames, boxes
+
+
+def _drive(url, jobs, clients, during=None):
+    """POST each job's body from `clients` threads, each taking the next job
+    when its last one is answered. `during` runs on a thread of its own once
+    a quarter of the jobs are answered. Returns the latencies (s), the
+    parsed responses by job and the wall seconds; fails on any error."""
+    nxt, done, lock = iter(range(len(jobs))), [], threading.Lock()
+    lat, out, errors = [0.0] * len(jobs), [None] * len(jobs), []
+
+    def client():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                status, body = _post(url + "/infer", jobs[i])
+                lat[i] = time.perf_counter() - t0
+                check(status == 200, f"/infer answered {status}")
+                out[i] = dict(np.load(io.BytesIO(body)))
+            except Exception as e:  # noqa: BLE001 — collected, and the phase fails on it below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+            with lock:
+                done.append(i)
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    side = None
+    if during is not None:
+        while len(done) < len(jobs) // 4 and any(t.is_alive() for t in threads):
+            time.sleep(0.005)
+        side = threading.Thread(target=during)
+        side.start()
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "a client thread hung")
+    wall = time.perf_counter() - t0
+    if side is not None:
+        side.join(timeout=600)
+        check(not side.is_alive(), "the side task hung")
+    check(not errors, f"{len(errors)} requests failed: {errors[:3]}")
+    return lat, out, wall
+
+
+def _sent(dets):
+    """The boxes as the server reads them from a request: fp32."""
+    return [Detection(*(float(np.float32(x)) for x in (d.cx, d.cy, d.size))) for d in dets]
+
+
+def _held(responses, jobs_frames, pipeline, tol, label):
+    """Each response against run_image on the same request (its boxes as
+    sent, in fp32): vertices within `tol` m. Returns the largest difference."""
+    worst, refs = 0.0, {}
+    for resp, (fi, frame, dets) in zip(responses, jobs_frames):
+        if fi not in refs:
+            refs[fi] = pipeline.run_image(frame, dets=_sent(dets))
+        ref = refs[fi]
+        check(int(resp["n_people"]) == ref["n_people"] == len(dets), f"{label}: people")
+        for k in ("verts", "verts_world"):
+            worst = max(worst, float(np.abs(resp[k] - ref[k]).max()))
+    check(worst <= tol, f"{label}: a response differs from run_image by {worst} m (tolerance {tol} m)")
+    return worst
+
+
+def _latency_line(label, lat, wall, stats, crops):
+    ms = np.sort(np.asarray(lat)) * 1e3
+    p50, p99 = np.percentile(ms, 50), np.percentile(ms, 99)
+    return (f"{label}: {len(lat) / wall:.2f} requests/s, {crops / wall:.2f} crops/s, latency p50 {p50:.2f} ms, "
+            f"p99 {p99:.2f} ms ({len(lat)} requests in {wall:.2f} s); {stats['device_batches']} device batches, "
+            f"{stats['crops'] / max(stats['device_batches'], 1):.2f} crops a batch, {stats['camcalib_calls']} "
+            f"CamCalib calls, {stats['camcalib_cache_hits']} cache hits, {stats['coalesced_requests']} "
+            f"coalesced requests")
+
+
+def _host_timed(fn, out):
+    """`fn`, appending the host seconds of each call to `out`."""
+    def run(*args, **kwargs):
         t0 = time.perf_counter()
-        n_batches = sum(1 for _ in loader)
-        log(f"cli: the loader alone: {(time.perf_counter() - t0) / n_batches * 1e3:.1f} ms a batch of "
-            f"{CLI_TRAIN_BATCH} (PNG decode, augmentation, crop; 8 threads; {n_batches} batches)")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            out.append(time.perf_counter() - t0)
+    return run
 
-        # whmr-eval: three protocols on the checkpoint, fp32, K1 in its CUDA-core variant.
-        common = ["--checkpoint", str(root / "train" / "checkpoints"), "--img_dir", paths["img_dir"],
-                  "--batch_size", str(CLI_EVAL_BATCH), "--device", "cuda", "--misc", "vit.attn_impl", "pallas"]
-        runs = {
-            "metric": (["--dataset_npz", paths["npz"], "--result_file", str(root / "result.npz")], CLI_IMAGES),
-            "parts": (["--dataset_npz", annotated, "--eval_parts", "--parts_dir", paths["parts_dir"]], CLI_ANNOTATED),
-            "coco_ap": (["--dataset_npz", annotated, "--coco_ap", "--coco_gt", paths["coco_gt"]], CLI_ANNOTATED),
-        }
-        loop_s, results = {}, {}
-        for name, (extra, crops) in runs.items():
-            with contextlib.ExitStack() as stack:
-                stack.enter_context(mock.patch.object(evaluate_module, "run_evaluation",
-                                             _timed(evaluate_module, "run_evaluation", loop_s)))
-                for fn in ("run_parts_evaluation", "run_coco_ap_evaluation"):
-                    stack.enter_context(mock.patch.object(eval_cli, fn, _timed(eval_cli, fn, loop_s)))
-                reset_launches()
-                t0 = time.perf_counter()
-                results[name] = eval_cli.main(common + extra)
-                torch.cuda.synchronize()
-                main_s = time.perf_counter() - t0
-                launches[f"whmr-eval {name}"] = n = read_launches()
-            batches = -(-crops // CLI_EVAL_BATCH)
-            loop = loop_s.pop(next(iter(loop_s)))
-            log(f"cli: whmr-eval {name} over {crops} crops: {crops / loop:.1f} crops/s in the protocol's loop "
-                f"({loop:.2f} s; {main_s:.1f} s in main with the model build and the checkpoint read); launches {n}")
-            check(n["attention"] == 12 * batches, f"whmr-eval {name}: K1 launched {n['attention']} times, want 12 a "
-                  f"forward batch ({batches} batches)")
-            check(n["attention.mma"] == 0, f"whmr-eval {name}: a fp32 K1 launch took the tensor-core variant")
-            check(n["rasterizer"] == 0 and n["fused_attention"] == 0, f"whmr-eval {name}: K2 or K3 launched")
-        m, p, c = results["metric"], results["parts"], results["coco_ap"]
-        check(m["count"] == CLI_IMAGES and all(np.isfinite(m[k]) and 0 <= m[k] < 1e4 for k in ("pve", "mpjpe", "pa_mpjpe")),
-              f"whmr-eval metric protocol: {m}")
-        check(all(0.0 <= p[k] <= 1.0 for k in ("mask_accuracy", "mask_f1", "parts_accuracy")), f"parts: {p}")
-        check(all(0.0 <= c[k] <= 1.0 for k in ("AP", "AP50", "AP75", "AR")), f"COCO AP: {c}")
-        dump = np.load(root / "result.npz")
-        check(dump["pred"].shape == (CLI_IMAGES, 14, 3) and bool(np.isfinite(dump["pred"]).all()), "result file")
 
-        # The metric protocol against run_evaluation called directly on the
-        # same model and batches.
-        args = eval_cli.build_parser().parse_args(common + runs["metric"][0])
-        cfg = WHMRConfig().with_overrides(**{"vit.attn_impl": "pallas"})
-        model, consts_e, assets = eval_cli.load_model_state(args, cfg)
-        ds = NpzDataset(cfg, paths["npz"], paths["img_dir"], is_train=False)
+def _tracking_clip(path, n_frames, width=480, height=360):
+    """An mp4 of two posed bodies walking right over a fixed background,
+    and their GT boxes by frame name ([x1, y1, x2, y2], as BboxFileDetector
+    reads them)."""
+    import cv2
 
-        def batches():
-            for hb in BatchLoader(ds, CLI_EVAL_BATCH, shuffle=False, drop_last=False):
-                b, _ = eval_cli.device_eval_batch(hb, extra_keys=("pose", "betas", "gender", "global_pose"),
-                                                  device="cuda")
-                b["valid"] = torch.from_numpy(hb["has_smpl"]).cuda()
-                yield b
+    assets = synthetic_smpl_assets()
+    rng = np.random.RandomState(5)
+    pose = (rng.randn(2, 72) * 0.25).astype(np.float32)
+    pose[:, :3] = 0.0
+    verts = posed_vertices(assets, pose, (rng.randn(2, 10) * 0.5).astype(np.float32))
+    focal = float(np.hypot(width, height))
+    bg = cv2.resize(rng.randint(40, 215, (6, 8, 3)).astype(np.uint8), (width, height), interpolation=cv2.INTER_CUBIC)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (width, height))
+    check(writer.isOpened(), "cv2 cannot write an mp4v video here")
+    boxes = {}
+    for i in range(n_frames):
+        ts = [np.array([-1.2 + 0.04 * i, 0.0, 7.0], np.float32), np.array([0.6 + 0.04 * i, 0.1, 7.5], np.float32)]
+        frame = render_overlay(bg, list(verts), ts, assets.faces, [focal] * 2, color=(0.65, 0.74, 0.86, 1.0))
+        writer.write(frame[:, :, ::-1])
+        boxes[f"{i:06d}.png"] = []
+        for v, t in zip(verts, ts):
+            pj = v + t
+            pix = focal * pj[:, :2] / pj[:, 2:3] + np.array([width / 2.0, height / 2.0])
+            boxes[f"{i:06d}.png"].append([*map(float, pix.min(axis=0)), *map(float, pix.max(axis=0))])
+    writer.release()
+    return boxes
 
-        direct = evaluate_module.run_evaluation(cfg, model, consts_e, batches(), log_every=0)
-        for k in ("pve", "mpjpe", "pa_mpjpe"):
-            rel = abs(m[k] - direct[k]) / abs(direct[k])
-            check(rel <= CLI_METRIC_RTOL, f"whmr-eval {k} {m[k]} vs run_evaluation's {direct[k]}: relative {rel}")
-        log(f"cli: whmr-eval metric protocol PVE {m['pve']:.3f}, MPJPE {m['mpjpe']:.3f}, PA-MPJPE {m['pa_mpjpe']:.3f} mm, "
-            f"equal to run_evaluation's on the same model and batches within {CLI_METRIC_RTOL} relative; parts "
-            f"mask accuracy {p['mask_accuracy']:.4f}, F1 {p['mask_f1']:.4f}, parts accuracy {p['parts_accuracy']:.4f}; "
-            f"COCO AP {c['AP']:.4f}, AP50 {c['AP50']:.4f}, AR {c['AR']:.4f}")
 
-        # The parts render alone, at the eval batch, through rasterize.
-        with torch.no_grad():
-            hb = next(iter(BatchLoader(ds, CLI_EVAL_BATCH, shuffle=False)))
-            b, _ = eval_cli.device_eval_batch(hb, device="cuda")
-            last = eval_cli._forward(model, consts_e, b)["smpl_out"][-1]
-            res = (cfg.img_res[1], cfg.img_res[0])
-            render_ms = _synced_ms(lambda: render_part_segmentation(assets, last["verts"], last["pred_cam"], res), 5)
-        log(f"cli: parts render B={CLI_EVAL_BATCH} at {res[0]}x{res[1]} through ops/rasterizer.py::rasterize: "
-            f"{render_ms:.2f} ms a batch (host clock, synchronised: the chunk windows are read back once a call)")
+def phase_serve(root, paths, cli_metric):
+    """The serving slice at full width, bf16, vit.attn_impl="pallas",
+    max_people 8, on the checkpoint phase_cli trained, in-process through
+    each CLI's main(argv) or its building blocks, on 127.0.0.1 port 0.
+    Returns the launches of each run."""
+    import cv2
 
-        # K1 as whmr-eval runs it: fp32 at the eval batch, CUDA-core variant.
-        shape = (CLI_EVAL_BATCH, 12, 192, 64)
-        g = torch.Generator(device="cuda").manual_seed(3)
-        q, k, v = (torch.randn(*shape, device="cuda", generator=g) for _ in range(3))
-        check(k1._variant(shape, torch.float32) != "mma", "fp32 K1 would take the tensor-core variant")
-        err = (k1.attention(q, k, v) - k1.attention_reference(q, k, v)).abs().max().item()
-        check(err <= 2e-5, f"fp32 K1 at {shape} disagrees with its plain version by {err}")
-        ms = cuda_ms(lambda: k1.attention(q, k, v), 20)
-        plain_ms = cuda_ms(lambda: k1.attention_reference(q, k, v), 20)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-        bound_ms, bound_by = attention_bound_ms(shape, torch.float32)
-        log(f"cli: K1 {shape} fp32 (whmr-eval's launches, CUDA-core variant): {ms * 1e3:.2f} us ({bound_ms / ms:.1%} of "
-            f"the bound), max_abs_err {err:.3g}; bound {bound_ms * 1e3:.2f} us ({bound_by}); plain {plain_ms * 1e3:.1f} us; "
-            f"scaled_dot_product_attention {library_ms * 1e3:.2f} us")
-        del model
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    ckpt = str(root / "train" / "checkpoints")
+    cap = str(SERVE_PEOPLE)
+    launches = {}
+    t0 = time.perf_counter()
+    frames, boxes = _serve_frames()
+    log(f"serve: {len(frames)} composite frames posed and rendered in {time.perf_counter() - t0:.1f} s (host)")
+
+    # 1. whmr-export: a split-CamCalib demo bundle and an eval bundle with
+    # --check. The demo bundle goes without: the bundle whmr-serve below
+    # loads it, runs it and holds it against the live pipeline.
+    bundles = {"demo": str(root / "bundle_demo"), "eval": str(root / "bundle_eval")}
+    for name, extra in (("demo", ["--camcalib", "split"]), ("eval", ["--eval", "--check"])):
+        reset_launches()
+        t0 = time.perf_counter()
+        export_cli.main(["--checkpoint", ckpt, "--output", bundles[name], *extra, "--bf16", "--batch_size", cap,
+                         "--device", "cuda", "--misc", *SERVE_MISC])
+        torch.cuda.synchronize()
+        launches[f"whmr-export {name}"] = n = read_launches()
+        log(f"serve: whmr-export {' '.join(extra)} (bf16, batch {cap}): {time.perf_counter() - t0:.1f} s with the "
+            f"model build, trace and save{', reload and check batch' if '--check' in extra else ''}; bundle "
+            f"{export_cli.bundle_bytes(bundles[name]) / 1e6:.1f} MB ({', '.join(sorted(os.listdir(bundles[name])))}); "
+            f"launches {n}")
+        want = 12 if "--check" in extra else 0  # the trace runs on fake tensors and launches nothing
+        check(n["attention"] == n["attention.mma"] == want, f"whmr-export {name}: K1 launches {n}, want {want} "
+              "on tensor cores (12 in the check's one batch: the custom op, not a traced plain version)")
+
+    # 2. The live whmr-serve: coalescing and CamCalib on, 8 clients, 64
+    # requests with their boxes (some frames repeat), one /reload under load.
+    jobs = [(i % len(frames), frames[i % len(frames)], boxes[i % len(frames)]) for i in range(SERVE_REQUESTS)]
+    bodies = [_request(f, d) for _, f, d in jobs]
+    crops = sum(len(d) for _, _, d in jobs)
+    t0 = time.perf_counter()
+    live = serve_cli.build_server(["--checkpoint", ckpt, "--port", "0", "--dtype", "bf16", "--max_people", cap,
+                                   "--detector", "full", "--warmup", "--device", "cuda", "--misc", *SERVE_MISC])
+    url = f"http://127.0.0.1:{live.httpd.server_address[1]}"
+    server_thread = threading.Thread(target=live.httpd.serve_forever, daemon=True)
+    server_thread.start()
+    log(f"serve: live whmr-serve up in {time.perf_counter() - t0:.1f} s (model build, checkpoint, warm-up)")
+    spans = {"worker": [], "camcalib": []}
+    for attr, key in (("_run_group", "worker"), ("_camcalib_for", "camcalib")):
+        setattr(live.executor, attr, _host_timed(getattr(live.executor, attr), spans[key]))
+    reloaded = {}
+
+    def reload():
+        status, body = _post(url + "/reload", json.dumps({"checkpoint": ckpt}).encode())
+        reloaded.update(status=status, body=json.loads(body))
+
+    reset_launches()
+    lat, out, wall = _drive(url, bodies, SERVE_CLIENTS, during=reload)
+    torch.cuda.synchronize()
+    n = read_launches()
+    stats = _get(url + "/stats")
+    check(reloaded.get("status") == 200 and reloaded["body"]["reloads"] == 1, f"/reload under load: {reloaded}")
+    log(_latency_line(f"serve: live whmr-serve, {SERVE_CLIENTS} clients", lat, wall, stats, crops))
+    check(stats["requests"] == SERVE_REQUESTS and stats["crops"] == crops,
+          f"/stats {stats}: want {SERVE_REQUESTS} requests and {crops} crops")
+    check(stats["coalesced_requests"] > 0 and stats["camcalib_cache_hits"] > 0, f"/stats {stats}")
+    # the reload's warm-up runs one device batch of its own
+    want = 12 * (stats["device_batches"] + 1)
+    check(n["attention"] == n["attention.mma"] == want, f"live whmr-serve: K1 launches {n}, want {want} on "
+          f"tensor cores (12 a device batch, {stats['device_batches']} batches and the reload's warm-up)")
+    check(n["rasterizer"] == 0 and n["fused_attention"] == 0, "K2 or K3 launched in whmr-serve")
+    launches["whmr-serve live"] = n
+    live_pipe = live.pipeline
+    alone = _synced_ms(lambda: live_pipe.run_image(frames[2], dets=boxes[2]), 8)
+    # dispatch-ahead: dispatch_image returns once the forward is enqueued;
+    # collect then waits for the card
+    overlap = []
+    for fi in range(2, 10):
+        t0 = time.perf_counter()
+        pending = live_pipe.dispatch_image(frames[fi], dets=boxes[fi])
+        t1 = time.perf_counter()
+        busy = not torch.cuda.current_stream().query()
+        live_pipe.collect(pending)
+        overlap.append((t1 - t0, busy, time.perf_counter() - t1))
+    log(f"serve: dispatch_image {np.mean([o[0] for o in overlap]) * 1e3:.2f} ms of host time, the stream still "
+        f"busy when it returned in {sum(o[1] for o in overlap)} of {len(overlap)} images, collect then waiting "
+        f"{np.mean([o[2] for o in overlap]) * 1e3:.2f} ms (B={cap}, 1-3 people)")
+    log(f"serve: where a live request's time goes (host clock): the worker {np.mean(spans['worker']) * 1e3:.2f} ms "
+        f"a device batch ({len(spans['worker'])} batches, the fetch included), CamCalib "
+        f"{np.mean(spans['camcalib']) * 1e3:.2f} ms a call on the request threads (a cache hit included); "
+        f"run_image alone, no server, {alone:.2f} ms an image of 3 people at B={cap}")
+    worst = _held(out, jobs, live_pipe, SERVE_VERTS_TOL, "live whmr-serve")
+    log(f"serve: every live response equals run_image on its request within {worst:.3g} m (tolerance "
+        f"{SERVE_VERTS_TOL} m); /reload under load answered {reloaded['body']}")
+
+    # The drain: requests in flight when the server stops are all answered.
+    entered, real_submit = [], live.executor.submit
+
+    def counting_submit(*a, **kw):
+        entered.append(1)
+        return real_submit(*a, **kw)
+
+    live.executor.submit = counting_submit
+    drained = {}
+
+    def drain_client(i):
+        drained[i] = _post(url + "/infer", bodies[i])[0]
+
+    reset_launches()
+    clients = [threading.Thread(target=drain_client, args=(i,)) for i in range(DRAIN_REQUESTS)]
+    for t in clients:
+        t.start()
+    deadline = time.time() + 120
+    while len(entered) < DRAIN_REQUESTS and time.time() < deadline:
+        time.sleep(0.001)
+    check(len(entered) == DRAIN_REQUESTS, "the drain's requests did not reach the server")
+    live.httpd.shutdown()
+    live.drain()
+    for t in clients:
+        t.join(timeout=120)
+    server_thread.join(timeout=60)
+    check(sorted(drained.values()) == [200] * DRAIN_REQUESTS and not server_thread.is_alive(),
+          f"drain: answers {drained}")
+    launches["whmr-serve drain"] = read_launches()
+    log(f"serve: drain: {DRAIN_REQUESTS} requests in flight at shutdown, all answered 200; the server stopped")
+
+    # 3. The bundle whmr-serve (the split bundle): held against the live
+    # pipeline first, then 16 requests.
+    t0 = time.perf_counter()
+    frozen = serve_cli.build_server(["--bundle", bundles["demo"], "--port", "0", "--max_people", cap,
+                                     "--detector", "full", "--warmup", "--device", "cuda", "--misc", *SERVE_MISC])
+    log(f"serve: bundle whmr-serve up in {time.perf_counter() - t0:.1f} s (program load, warm-up)")
+    bpipe = frozen.pipeline
+    held = 0.0
+    for fi in range(0, len(frames), 3):
+        a, b = bpipe.run_image(frames[fi], dets=boxes[fi]), live_pipe.run_image(frames[fi], dets=boxes[fi])
+        held = max(held, *(float(np.abs(a[k] - b[k]).max()) for k in ("verts", "verts_world")))
+    log(f"serve: the split bundle against the live pipeline on the same crops: vertices within {held:.4g} m "
+        f"(tolerance {SERVE_VERTS_TOL} m)")
+    check(held <= SERVE_VERTS_TOL, f"the bundle differs from the live pipeline by {held} m")
+    reset_launches()
+    bpipe.run_image(frames[0], dets=boxes[0])
+    torch.cuda.synchronize()
+    n = read_launches()
+    check(n["attention"] == n["attention.mma"] == 12, f"one batch of the exported program: K1 launches {n}, "
+          "want 12 on tensor cores")
+    spans = {"worker": [], "camcalib": []}
+    for attr, key in (("_run_group", "worker"), ("_camcalib_for", "camcalib")):
+        setattr(frozen.executor, attr, _host_timed(getattr(frozen.executor, attr), spans[key]))
+    url = f"http://127.0.0.1:{frozen.httpd.server_address[1]}"
+    server_thread = threading.Thread(target=frozen.httpd.serve_forever, daemon=True)
+    server_thread.start()
+    jobs_b = jobs[:BUNDLE_REQUESTS]
+    reset_launches()
+    lat, out, wall = _drive(url, bodies[:BUNDLE_REQUESTS], SERVE_CLIENTS)
+    torch.cuda.synchronize()
+    n = read_launches()
+    stats = _get(url + "/stats")
+    frozen.httpd.shutdown()
+    frozen.drain()
+    server_thread.join(timeout=60)
+    crops_b = sum(len(d) for _, _, d in jobs_b)
+    log(_latency_line(f"serve: bundle whmr-serve, {SERVE_CLIENTS} clients", lat, wall, stats, crops_b))
+    log(f"serve: bundle whmr-serve (host clock): the worker {np.mean(spans['worker']) * 1e3:.2f} ms a device batch "
+        f"({len(spans['worker'])} batches, the fetch included), the CamCalib program "
+        f"{np.mean(spans['camcalib']) * 1e3:.2f} ms a call on the request threads")
+    check(stats["crops"] == crops_b and stats["requests"] == BUNDLE_REQUESTS, f"bundle /stats {stats}")
+    check(n["attention"] == n["attention.mma"] == 12 * stats["device_batches"],
+          f"bundle whmr-serve: K1 launches {n}, want 12 a device batch on tensor cores ({stats['device_batches']})")
+    launches["whmr-serve bundle"] = n
+    worst = _held(out, jobs_b, live_pipe, SERVE_VERTS_TOL, "bundle whmr-serve")
+    log(f"serve: every bundle response equals the live run_image within {worst:.3g} m")
+    del frozen, bpipe, live, live_pipe
+    torch.cuda.empty_cache()
+
+    # whmr-eval --bundle on the first crops of phase_cli's dataset against
+    # run_evaluation of the live model in the bundle's dtype (bf16) on the
+    # same batches.
+    npz = _subset_npz(paths["npz"], root / "serve_eval.npz", SERVE_EVAL_CROPS)
+    argv = ["--dataset_npz", npz, "--img_dir", paths["img_dir"], "--batch_size", cap, "--device", "cuda",
+            "--log_freq", "0", "--misc", *SERVE_MISC]
+    reset_launches()
+    t0 = time.perf_counter()
+    got = eval_cli.main(["--bundle", bundles["eval"], *argv])
+    torch.cuda.synchronize()
+    launches["whmr-eval --bundle"] = n = read_launches()
+    n_batches = -(-SERVE_EVAL_CROPS // SERVE_PEOPLE)
+    log(f"serve: whmr-eval --bundle over {SERVE_EVAL_CROPS} crops at B={cap}: {time.perf_counter() - t0:.1f} s in "
+        f"main with the program load; launches {n}")
+    check(n["attention"] == n["attention.mma"] == 12 * n_batches, f"whmr-eval --bundle: K1 launches {n}, want "
+          f"12 a batch ({n_batches}) on tensor cores")
+    args = eval_cli.build_parser().parse_args(["--checkpoint", ckpt, *argv])
+    cfg = WHMRConfig().with_overrides(**dict(zip(SERVE_MISC[::2], SERVE_MISC[1::2])))
+    model, consts_e, _ = eval_cli.load_model_state(args, cfg)
+    twin = WHMR(cfg, dtype=torch.bfloat16)
+    twin.load_state_dict(model.state_dict())
+    twin = twin.cuda().eval()
+    del model
+    ds = NpzDataset(cfg, npz, paths["img_dir"], is_train=False)
+
+    def batches():
+        for hb in BatchLoader(ds, SERVE_PEOPLE, shuffle=False, drop_last=False):
+            b, _ = eval_cli.device_eval_batch(hb, extra_keys=("pose", "betas", "gender", "global_pose"), device="cuda")
+            b["valid"] = torch.from_numpy(hb["has_smpl"]).cuda()
+            yield b
+
+    want = evaluate_module.run_evaluation(cfg, twin, consts_e, batches(), log_every=0)
+    for k in ("pve", "mpjpe", "pa_mpjpe"):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        check(rel <= CLI_METRIC_RTOL, f"whmr-eval --bundle {k} {got[k]} vs the live bf16 model's {want[k]}: {rel}")
+    log(f"serve: whmr-eval --bundle PVE {got['pve']:.3f}, MPJPE {got['mpjpe']:.3f}, PA-MPJPE {got['pa_mpjpe']:.3f} "
+        f"mm over {SERVE_EVAL_CROPS} crops, equal to run_evaluation of the live bf16 model within {CLI_METRIC_RTOL} "
+        f"relative ({time.perf_counter() - t0:.1f} s with the live model's build and run); the fp32 whmr-eval of "
+        f"phase_cli over all {CLI_IMAGES} crops (B={CLI_EVAL_BATCH}) read PVE {cli_metric['pve']:.3f}, MPJPE "
+        f"{cli_metric['mpjpe']:.3f}, PA-MPJPE {cli_metric['pa_mpjpe']:.3f}")
+    del twin
+    torch.cuda.empty_cache()
+
+    # 4. whmr-demo on 4 composite images with rendering, and whmr-video on a
+    # 12-frame mp4 with tracking, both through a bbox file.
+    imgs, out_dir = root / "demo_in", root / "demo_out"
+    imgs.mkdir()
+    picks = [0, 9, 17, 20]
+    bbox = {}
+    for fi in picks:
+        cv2.imwrite(str(imgs / f"f{fi:02d}.png"), frames[fi][:, :, ::-1])
+        bbox[f"f{fi:02d}.png"] = [[d.cx - d.size / 2, d.cy - d.size / 2, d.cx + d.size / 2, d.cy + d.size / 2]
+                                  for d in boxes[fi]]
+    (root / "demo_boxes.json").write_text(json.dumps(bbox))
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = demo_cli.main(["--image_folder", str(imgs), "--output_folder", str(out_dir), "--checkpoint", ckpt,
+                           "--detector", "file", "--bbox_file", str(root / "demo_boxes.json"), "--dtype", "bf16",
+                           "--max_people", cap, "--device", "cuda", "--misc", *SERVE_MISC])
+    torch.cuda.synchronize()
+    launches["whmr-demo"] = n = read_launches()
+    check(stats["images"] == len(picks) and stats["people"] == sum(len(boxes[fi]) for fi in picks), f"demo {stats}")
+    check(n["attention"] == n["attention.mma"] == 12 * len(picks), f"whmr-demo: K1 launches {n}")
+    for fi in picks:
+        panel = cv2.imread(str(out_dir / f"f{fi:02d}_overlay.png"))
+        check(panel is not None, f"no overlay for f{fi:02d}")
+        src = frames[fi][:, :, ::-1]
+        for d in boxes[fi]:
+            y0, y1 = int(max(d.cy - d.size / 2, 0)), int(min(d.cy + d.size / 2, src.shape[0]))
+            x0, x1 = int(max(d.cx - d.size / 2, 0)), int(min(d.cx + d.size / 2, src.shape[1]))
+            check((panel[y0:y1, x0:x1] != src[y0:y1, x0:x1]).any(), f"f{fi:02d}: the overlay left a person bare")
+    log(f"serve: whmr-demo over {len(picks)} images with rendering: {stats['fps']:.2f} img/s (host clock; the model "
+        f"build and checkpoint read are outside it; {time.perf_counter() - t0:.1f} s in main), {stats['people']} "
+        f"people, overlays differ from the input in every person's box; launches {n}")
+    t0 = time.perf_counter()
+
+    clip_boxes = _tracking_clip(root / "clip.mp4", VIDEO_FRAMES)
+    (root / "clip_boxes.json").write_text(json.dumps(clip_boxes))
+    reset_launches()
+    stats = video_cli.main(["--video", str(root / "clip.mp4"), "--output_folder", str(root / "video_out"),
+                            "--checkpoint", ckpt, "--detector", "file", "--bbox_file", str(root / "clip_boxes.json"),
+                            "--dtype", "bf16", "--max_people", cap, "--device", "cuda", "--misc", *SERVE_MISC])
+    torch.cuda.synchronize()
+    launches["whmr-video"] = n = read_launches()
+    tracks = []
+    for i in range(VIDEO_FRAMES):
+        with open(root / "video_out" / "results" / f"{i:06d}.pkl", "rb") as f:
+            det = pickle.load(f)["detections"]
+        tracks.append(tuple(int(t) for t in det[np.argsort(det[:, 0]), 4]))
+    check(stats["images"] == VIDEO_FRAMES and (root / "video_out" / "result.mp4").is_file(), f"video {stats}")
+    check(len(set(tracks)) == 1 and len(tracks[0]) == 2 and -1 not in tracks[0],
+          f"whmr-video track ids by frame (left to right): {tracks}")
+    check(n["attention"] == n["attention.mma"] == 12 * VIDEO_FRAMES, f"whmr-video: K1 launches {n}")
+    log(f"serve: whmr-video over {VIDEO_FRAMES} frames: {stats['fps']:.2f} frames/s, track ids {tracks[0]} in every "
+        f"frame, left to right ({time.perf_counter() - t0:.1f} s with the clip's render and the model build); "
+        f"launches {n}")
+
+    # 5. K1 at the serving shape: held against its plain version through
+    # attention() and through the custom op, and timed beside
+    # scaled_dot_product_attention.
+    shape = (SERVE_PEOPLE, 12, 192, 64)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=g, dtype=torch.bfloat16) for _ in range(3))
+    want = k1.attention_reference(q, k, v)
+    tol = k1_tolerance(want, torch.bfloat16)
+    serve_errs = {}
+    for label, fn in (("attention()", k1.attention), ("torch.ops.whmr.attention", torch.ops.whmr.attention)):
+        reset_launches()
+        got = fn(q, k, v)
+        torch.cuda.synchronize()
+        n = read_launches()
+        check(n["attention"] == n["attention.mma"] == 1, f"K1 {shape} through {label}: launches {n}, want 1 on "
+              "tensor cores")
+        err = (got.float() - want.float()).abs()
+        serve_errs[label] = err.max().item()
+        check(bool((err <= tol).all()), f"K1 disagrees with its plain version at the serving shape {shape} bf16 "
+              f"through {label}: max_abs_err {serve_errs[label]}")
+    ms = cuda_ms(lambda: k1.attention(q, k, v), 200)
+    op_ms = cuda_ms(lambda: torch.ops.whmr.attention(q, k, v), 200)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 200)
+    bound_ms, bound_by = attention_bound_ms(shape, torch.bfloat16)
+    log(f"serve: K1 {shape} bf16 (the serving shape): max_abs_err {serve_errs['attention()']:.3g} through "
+        f"attention(), {serve_errs['torch.ops.whmr.attention']:.3g} through torch.ops.whmr.attention (tolerance "
+        f"{tol.max().item():.3g}); {ms * 1e3:.2f} us through attention(), {op_ms * 1e3:.2f} us "
+        f"through torch.ops.whmr.attention ({bound_ms / ms:.1%} of the {bound_ms * 1e3:.2f} us bound, {bound_by}); "
+        f"scaled_dot_product_attention {library_ms * 1e3:.2f} us; host time a call through attention() "
+        f"{host_us(lambda: k1.attention(q, k, v)):.1f} us, through the custom op (what an exported program calls) "
+        f"{host_us(lambda: torch.ops.whmr.attention(q, k, v)):.1f} us, through the wrapper's launch alone "
+        f"{host_us(lambda: k1._forward(q, k, v, False)):.1f} us")
     return launches
 
 
@@ -1170,18 +1664,31 @@ def main():
     del model, inputs, train_model, state, batch
     torch.cuda.empty_cache()
     fit_launches, fit_ms = phase_trainer(train_cfg, train_consts, train_ms)
-    cli_launches = phase_cli(train_consts, train_ms, fit_ms)
+    # phase_serve serves the checkpoint phase_cli trains, on its dataset
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        cli_launches, paths, cli_metric = phase_cli(train_consts, train_ms, fit_ms, root)
+        t0 = time.perf_counter()
+        serve_launches = phase_serve(root, paths, cli_metric)
+        log(f"serve: phase_serve took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     # K3 runs on no path: its count is the forwards', the train steps' and
     # the fit's, each read over its run (and each checked to be 0).
     k3 = next(k for k in kernels if k["name"] == "fused_attention")
     k3["launches"] += train_launches["fused_attention"] + fit_launches["fused_attention"]
     k3["mma_launches"] += train_launches["fused_attention.mma"] + fit_launches["fused_attention.mma"]
-    # The CLI path's launches: whmr-eval's K1 (on CUDA cores, fp32) and
-    # whmr-train's K2, each read over its run; K3's, checked to be 0.
+    # The CLI path's launches (whmr-eval's K1 on CUDA cores, fp32, and
+    # whmr-train's K2) and the serving path's (K1 on tensor cores in every
+    # export check, server, eval, demo and video run), each read over its
+    # run; K3's, checked to be 0.
+    runs = list(cli_launches.values()) + list(serve_launches.values())
     for k in kernels:
-        k["launches"] += sum(n[k["name"]] for n in cli_launches.values())
+        k["launches"] += sum(n[k["name"]] for n in runs)
         if k["mma_launches"] is not None:
-            k["mma_launches"] += sum(n[f"{k['name']}.mma"] for n in cli_launches.values())
+            k["mma_launches"] += sum(n[f"{k['name']}.mma"] for n in runs)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

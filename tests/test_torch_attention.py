@@ -7,6 +7,8 @@ plain version on a card by tests/test_torch_kernels_cuda.py and
 chip_smoke.py.
 """
 
+import sys
+import threading
 from fractions import Fraction
 
 import jax
@@ -206,3 +208,72 @@ ptxas info    : Used 32 registers, 400 bytes cmem[0]
         "_Z20attention_mma_kernelILi192EEvv": {"registers": 168, "spill_stores": 8, "spill_loads": 4},
         "_Z6rows_kv": {"registers": 32, "spill_stores": 0, "spill_loads": 0},
     }
+
+
+def test_concurrent_first_use_builds_each_kernel_once(tmp_path, monkeypatch):
+    """Eight threads reach a kernel's first use together (a server's request
+    threads, its batching worker and a warm-up do): exactly one compile
+    runs, and the library installed is whole. The compiler is a script that
+    writes its -o file slowly, so no toolchain is needed."""
+    calls = tmp_path / "calls.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {calls}\n"
+        'while [ $# -gt 0 ]; do if [ "$1" = "-o" ]; then out="$2"; fi; shift; done\n'
+        'for i in 1 2 3 4 5; do echo "part $i" >> "$out"; sleep 0.05; done\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    start, errors = threading.Barrier(8), []
+
+    def first_use():
+        start.wait()
+        try:
+            cuda_build.build_all(["attention"])
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=first_use) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors
+    assert calls.read_text().count("run") == 1
+    lib = cuda_build.library_path("attention")
+    assert lib.parent == tmp_path / "build"
+    assert lib.read_text() == "".join(f"part {i}\n" for i in range(1, 6))
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_custom_op_is_k1_and_export_keeps_it():
+    """`torch.ops.whmr.attention` is K1's wrapper (on CPU tensors the plain
+    version); eager calls of `attention` launch without it, and torch.export
+    keeps it as one node a call, with the batch symbolic: the variant
+    depends on N and D alone."""
+    q, k, v = (t(a) for a in _qkv((3, 2, 16, 8)))
+    assert torch.equal(torch.ops.whmr.attention(q, k, v), tattn.attention_reference(q, k, v))
+    assert torch.equal(tattn.attention(q, k, v), tattn.attention_reference(q, k, v))
+    with pytest.MonkeyPatch.context() as mp:  # eager calls launch without the dispatcher
+        mp.setattr(tattn, "attention_op", None)
+        assert torch.equal(tattn.attention(q, k, v), tattn.attention_reference(q, k, v))
+
+    class Block(torch.nn.Module):
+        def forward(self, x):
+            return tattn.attention(x, x * 0.5, x + 1.0) + 1.0
+
+    program = torch.export.export(Block(), (torch.randn(3, 2, 16, 8),),
+                                  dynamic_shapes=({0: torch.export.Dim("B")},), strict=False)
+    assert [str(n.target) for n in program.graph.nodes].count("whmr.attention.default") == 1
+    (batch,) = program.range_constraints.values()
+    assert batch.lower <= 1 and batch.upper > 2**31
+    x = torch.randn(5, 2, 16, 8)
+    assert torch.equal(program.module()(x), Block()(x))

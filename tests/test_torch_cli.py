@@ -293,7 +293,10 @@ class TestEvalGuards:
     @pytest.mark.parametrize("flags,error,match", [
         ([], SystemExit, "exactly one"),
         (["--checkpoint", "CKPT", "--bundle", "b"], SystemExit, "exactly one"),
-        (["--bundle", "b"], NotImplementedError, "slice 4"),
+        # ported in slice 4: a directory without a bundle now fails its load
+        # (the case keeps the id it had while --bundle raised NotImplementedError)
+        pytest.param(["--bundle", "b"], FileNotFoundError, "not a whmr-export bundle",
+                     id="flags2-NotImplementedError-slice 4"),
         (["--checkpoint", "CKPT", "--data_parallel", "2"], NotImplementedError, "slice 5"),
         (["--checkpoint", "CKPT", "--regressor", "hmr"], NotImplementedError, "slice 6"),
         (["--checkpoint", "CKPT", "--eval_parts"], SystemExit, "--parts_dir"),

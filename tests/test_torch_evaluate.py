@@ -141,9 +141,11 @@ def test_run_evaluation_matches_whmr_tpu(carried, tmp_path, mapper):
 def test_eval_step_guards():
     model, _ = twhmr.build_model(ttesting.tiny_config(), dtype=torch.float32, device="cpu")
     cfg = ttesting.tiny_config()
-    for kw in ({"mesh": object()}, {"regressor": "hmr"}, {"forward_override": lambda *a: a}):
+    for kw in ({"mesh": object()}, {"regressor": "hmr"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             run_evaluation(cfg, model, None, [], **kw)
+    # forward_override (an exported bundle's program) is ported: no model needed
+    assert run_evaluation(cfg, None, None, [], forward_override=lambda *a: a)["count"] == 0
     b, nb = device_eval_batch({"img": np.zeros((2, 4, 4, 3)), "pose": np.zeros((2, 72)), "junk": np.zeros(2)},
                               extra_keys=("pose",), device="cpu")
     assert nb == 2 and set(b) == {"img", "pose", "cam_rotmat"} and b["img"].dtype == torch.float32

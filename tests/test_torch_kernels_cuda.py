@@ -293,3 +293,42 @@ def test_rasterizer_kernel_refuses_windows_past_the_pair_count(cuda_device):
     nul = [None] * 9
     for h, w, c in ((8192, 8192, 3), (1, k2._MAX_WINDOW + 1, 3), (8, 8, 9)):
         assert lib.whmr_raster_fwd(*nul, 1, h, w, 1024, 1024, c, 0.0, 0.0, None) == 1, (h, w, c)  # cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+def test_attention_custom_op_is_the_kernel(cuda_device):
+    """`torch.ops.whmr.attention` (what an exported program calls) launches
+    K1, counted, and gives attention()'s result bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(2, 12, 192, 64, device=cuda_device, generator=g, dtype=torch.bfloat16) for _ in range(3))
+    before = (tattn.attention.launches, tattn.attention.mma_launches)
+    a = tattn.attention(q, k, v)
+    b = torch.ops.whmr.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert (tattn.attention.launches, tattn.attention.mma_launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_exported_vit_block_keeps_k1(cuda_device):
+    """torch.export of a one-block ViT-B in bf16 under attn_impl="pallas":
+    the program launches K1 once a call on tensor cores (the operator, not
+    a traced plain version) and equals the live module."""
+    from whmr_tpu_torch.config import ViTConfig
+    from whmr_tpu_torch.models.vit import ViTBackbone
+
+    vit = ViTBackbone(ViTConfig(depth=1, attn_impl="pallas"), dtype=torch.bfloat16).to(cuda_device).eval()
+    vit.requires_grad_(False)
+    x = torch.randn(2, 3, 256, 192, device=cuda_device)
+    with torch.no_grad():
+        program = torch.export.export(vit, (x,), dynamic_shapes=({0: torch.export.Dim("B")},), strict=False)
+    run = program.module()
+    x = torch.randn(3, 3, 256, 192, device=cuda_device)
+    before = (tattn.attention.launches, tattn.attention.mma_launches)
+    with torch.no_grad():
+        got = run(x)
+        torch.cuda.synchronize()
+        launched = (tattn.attention.launches - before[0], tattn.attention.mma_launches - before[1])
+        want = vit(x)
+    assert launched == (1, 1)
+    assert torch.equal(got, want)

@@ -85,3 +85,35 @@ def random_batch_stats(variables, seed=0):
                       else rng.uniform(0.5, 1.5, v.shape)).astype(np.float32)
     return {**variables, "batch_stats": traverse_util.unflatten_dict(flat)}
 
+
+
+def carried_whmr(jcfg, seed=0):
+    """whmr_tpu's WHMR at `jcfg` initialised by `model.init` (CamCalib
+    included, random BatchNorm statistics) -> (flax variables, the port's
+    state_dict of the same weights)."""
+    import jax.numpy as jnp
+
+    from whmr_tpu.data.assets import synthetic_smpl_assets
+    from whmr_tpu.models.regressor import body_consts_from_assets
+    from whmr_tpu.models.whmr import WHMR
+    from whmr_tpu.utils.testing import make_example_inputs
+
+    args = {k: jnp.asarray(v) for k, v in make_example_inputs(jcfg, 2).items()}
+    args["full_x"] = jnp.zeros((2, 64, 64, 3), jnp.float32)
+    consts = body_consts_from_assets(synthetic_smpl_assets())
+    variables = jax.jit(lambda c, a: WHMR(jcfg).init(jax.random.PRNGKey(seed), c, **a))(consts, args)
+    variables = random_batch_stats(jax.device_get(variables))
+    return variables, state_dict_from_flax(variables)
+
+
+def save_port_checkpoint(sd, path):
+    """The port's state_dict `sd` as a weights-only checkpoint dir of the
+    port (what `CheckpointManager.restore_weights` reads)."""
+    from whmr_tpu_torch.utils.checkpoint import CheckpointManager
+
+    stats = ("running_mean", "running_var")
+    CheckpointManager(str(path)).save(1, {
+        "params": {k: v for k, v in sd.items() if not k.endswith((*stats, "num_batches_tracked"))},
+        "batch_stats": {k: v for k, v in sd.items() if k.endswith(stats)},
+    })
+    return str(path)

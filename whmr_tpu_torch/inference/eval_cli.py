@@ -25,10 +25,12 @@ Protocol variants carried over from the reference:
 - labels without `cam_rotmat` abort unless `--allow_identity_cam`: the
   reference eval REQUIRES the GT camera rotation (eval.py:157-163), and a
   silent identity fallback produces quietly-wrong world-frame metrics.
+- `--bundle dir/` (instead of `--checkpoint`) scores an eval-variant
+  export (`whmr-export --eval`): the metric protocol runs the exact
+  deployed program, padded to its fixed batch when it has one.
 
-Not ported yet, and raising NotImplementedError: `--bundle` (exported
-graphs, slice 4), `--data_parallel` (slice 5) and `--regressor hmr`
-(slice 6).
+Not ported yet, and raising NotImplementedError: `--data_parallel`
+(slice 5) and `--regressor hmr` (slice 6).
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint dir of the port (<step>/payload.pt), full or weights-only")
     p.add_argument("--bundle", default=None,
-                   help="eval-variant export bundle (not ported yet: slice 4)")
+                   help="eval-variant export bundle (whmr-export --eval): "
+                        "score the frozen program instead of --checkpoint")
     p.add_argument("--dataset_npz", required=True, help="eval label npz")
     p.add_argument("--img_dir", required=True)
     p.add_argument("--dataset", default="custom",
@@ -143,25 +146,94 @@ def load_model_state(args, cfg):
     them."""
     from whmr_tpu_torch.data.assets import get_assets
     from whmr_tpu_torch.models.whmr import build_model
-    from whmr_tpu_torch.utils.checkpoint import CheckpointManager, missing_checkpoint_message
 
     if getattr(args, "regressor", "pymaf_net") != "pymaf_net":
         raise NotImplementedError(f"--regressor {args.regressor} is not ported yet (slice 6)")
     device = resolve_device(getattr(args, "device", "cuda"))
     assets = get_assets(args.data_dir)
     model, consts = build_model(cfg, dtype=torch.float32, device=device, seed=0, assets=assets)
+    restore_checkpoint(model, args.checkpoint)
+    return model.eval(), consts, assets
+
+
+def restore_checkpoint(model, checkpoint: str) -> None:
+    """Load the weights of a checkpoint dir of the port (the full training
+    payload or the weights-only one) into `model`, in place; SystemExit
+    when the dir holds none."""
+    from whmr_tpu_torch.utils.checkpoint import CheckpointManager, missing_checkpoint_message
+
     template = {
         "params": dict(model.named_parameters()),
         "batch_stats": {k: v for k, v in model.named_buffers() if k.endswith(("running_mean", "running_var"))},
     }
-    weights = CheckpointManager(args.checkpoint).restore_weights(template) if os.path.isdir(args.checkpoint) else None
+    weights = CheckpointManager(checkpoint).restore_weights(template) if os.path.isdir(checkpoint) else None
     if weights is None:
-        raise SystemExit(missing_checkpoint_message(args.checkpoint))
+        raise SystemExit(missing_checkpoint_message(checkpoint))
     with torch.no_grad():
         for part in ("params", "batch_stats"):
             for k, t in template[part].items():
                 t.copy_(weights[part][k])
-    return model.eval(), consts, assets
+
+
+def load_bundle_state(args, cfg):
+    """Load an eval-variant export bundle for the metric protocol ->
+    (served, consts, assets, forward_override). The metric step runs the
+    bundle's program in place of the live forward, so the scored forward is
+    the deployed one."""
+    from whmr_tpu_torch.data.assets import get_assets
+    from whmr_tpu_torch.inference.export import bundle_meta, load_exported
+    from whmr_tpu_torch.models.regressor import body_consts_from_assets
+
+    device = resolve_device(getattr(args, "device", "cuda"))
+    # the checks read meta.json only: they come before the program's load
+    meta = bundle_meta(args.bundle)
+    if meta["variant"] != "eval":
+        raise SystemExit(
+            f"{args.bundle} is a {meta['variant']!r}-variant bundle; "
+            "metric evaluation needs the eval graph (GT cam_rotmat input, "
+            "world-frame outputs) — re-export with whmr-export --eval"
+        )
+    if getattr(args, "regressor", "pymaf_net") != "pymaf_net":
+        raise SystemExit("--bundle carries the WHMR (pymaf_net) graph; "
+                         "--regressor hmr needs a live --checkpoint")
+    if args.eval_parts or args.coco_ap:
+        raise SystemExit(
+            "--eval_parts/--coco_ap need forward outputs (crop verts, "
+            "full-image keypoints) the eval bundle does not export; use "
+            "a live --checkpoint"
+        )
+    if args.data_parallel:
+        raise SystemExit(
+            "--data_parallel shards the live model; the exported "
+            "program pins its own shapes — run the bundle single-device"
+        )
+    have = tuple(meta.get("crop_hw", cfg.crop_hw))
+    if have != tuple(cfg.crop_hw):
+        raise SystemExit(
+            f"bundle was exported with crop_hw={list(have)} but the eval "
+            f"config has {list(cfg.crop_hw)}; pass the --cfg_file the "
+            "bundle was exported with"
+        )
+    if meta["batch_size"] and args.batch_size > meta["batch_size"]:
+        raise SystemExit(
+            f"{args.bundle} was exported with a fixed batch of "
+            f"{meta['batch_size']}; pass --batch_size {meta['batch_size']} "
+            "or smaller (smaller batches are padded), or re-export with "
+            "--batch_size 0 for a polymorphic bundle"
+        )
+    served = load_exported(args.bundle, device=device)
+    assets = get_assets(args.data_dir)
+    consts = body_consts_from_assets(assets, device=device)
+
+    def forward_override(consts, batch):
+        out = served.call_eval(
+            batch["img"], batch["center"], batch["scale"], batch["bbox_height"],
+            batch["orig_shape"], batch["bbox_info"], batch["cam_rotmat"],
+        )
+        last_params = {"pose": out["pose"], "pred_shape": out["shape"], "pred_cam": out["camera"]}
+        return out["verts_world"], last_params
+
+    return served, consts, assets, forward_override
 
 
 def main(argv=None):
@@ -184,9 +256,7 @@ def main(argv=None):
             "pass exactly one of --checkpoint (live model) or --bundle "
             "(frozen eval-variant export)"
         )
-    if args.bundle:
-        raise NotImplementedError("--bundle (exported eval graphs) is not ported yet (slice 4)")
-    if args.data_parallel:
+    if args.data_parallel and not args.bundle:
         raise NotImplementedError("--data_parallel is not ported yet (slice 5)")
     ds = NpzDataset(cfg, args.dataset_npz, args.img_dir, is_train=False)
     # The checks of the arguments and labels come before the model is built.
@@ -213,7 +283,11 @@ def main(argv=None):
                 "cam_rotmat and pass --allow_identity_cam for camera-frame eval."
             )
 
-    model, consts, assets = load_model_state(args, cfg)
+    served = forward_override = model = None
+    if args.bundle:
+        served, consts, assets, forward_override = load_bundle_state(args, cfg)
+    else:
+        model, consts, assets = load_model_state(args, cfg)
     device = consts.smpl.v_template.device
     loader = BatchLoader(ds, args.batch_size, shuffle=False, drop_last=False,
                          num_procs=args.loader_procs)
@@ -263,6 +337,8 @@ def main(argv=None):
         cfg, model, consts, batches(), log_every=args.log_freq,
         gendered_smpl=gendered_smpl, joint_mapper=joint_mapper,
         result_file=args.result_file, regressor=args.regressor,
+        forward_override=forward_override,
+        fixed_batch=served.batch_size if served is not None else None,
     )
     print(
         f"*** Final Results ***\nPVE: {result['pve']:.2f}\n"

@@ -8,9 +8,10 @@ the batch's device; the per-batch metric sums stay there until a log
 boundary or the end, so the host reads them back once, not once a batch.
 
 The port's model holds its own weights, so where whmr_tpu passes
-`variables` to the eval step, the port passes the model. The data-parallel
-`mesh=`, the HMR baseline (`regressor="hmr"`) and `forward_override` (an
-exported bundle's graph) are not ported yet and raise.
+`variables` to the eval step, the port passes the model (None when a
+`forward_override`, an exported bundle's program, predicts instead). The
+data-parallel `mesh=` (slice 5) and the HMR baseline (`regressor="hmr"`,
+slice 6) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -54,18 +55,16 @@ class EvalMetrics:
         }
 
 
-def _not_ported(regressor, mesh, forward_override):
+def _not_ported(regressor, mesh):
     if mesh is not None:
         raise NotImplementedError("data-parallel evaluation (mesh=) is not ported yet (slice 5)")
     if regressor != "pymaf_net":
         raise NotImplementedError(f"regressor={regressor!r} is not ported yet (slice 6)")
-    if forward_override is not None:
-        raise NotImplementedError("forward_override (exported bundles) is not ported yet (slice 4)")
 
 
 def make_eval_step(
     cfg: WHMRConfig,
-    model: WHMR,
+    model: Optional[WHMR],
     gendered_smpl=None,
     joint_mapper: str = "j14",
     save_arrays: bool = False,
@@ -75,6 +74,11 @@ def make_eval_step(
 ):
     """Eval step: (consts, batch) -> ((sum_mpjpe, sum_pa, sum_pve, n), extras),
     the sums as device scalars. `model` must be in eval mode.
+
+    forward_override(consts, batch) -> (world verts, final-stage params
+    {"pose", "pred_shape", "pred_cam"}): a pluggable prediction path (an
+    exported eval-variant bundle's program, whmr-eval --bundle) in place of
+    the live forward; `model` is then unused.
 
     Mirrors eval.py:155-228: model forward with the GT cam_rotmat;
     world-frame (global) vertices; H36M-regressed joints, pelvis-centered,
@@ -91,24 +95,28 @@ def make_eval_step(
     (eval.py:312-319): the 17 H36M pred joints, mapped/centered pred, gt and
     Procrustes-aligned pred, pose/betas/cam.
     """
-    _not_ported(regressor, mesh, forward_override)
+    _not_ported(regressor, mesh)
     mapper = H36M_TO_J17 if joint_mapper == "j17" else H36M_TO_J14
 
     @torch.no_grad()
     def step(consts: BodyConsts, batch: Dict[str, torch.Tensor]):
-        preds = model(
-            consts,
-            batch["img"],
-            batch["center"],
-            batch["scale"],
-            batch["bbox_height"],
-            batch["orig_shape"],
-            batch["bbox_info"],
-            train=False,
-            cam_rotmat=batch.get("cam_rotmat"),
-        )
-        pred_verts = preds["global_output"]["global_verts"].float()
-        last_params = preds["smpl_out"][-1]
+        if forward_override is not None:
+            pred_verts, last_params = forward_override(consts, batch)
+        else:
+            preds = model(
+                consts,
+                batch["img"],
+                batch["center"],
+                batch["scale"],
+                batch["bbox_height"],
+                batch["orig_shape"],
+                batch["bbox_info"],
+                train=False,
+                cam_rotmat=batch.get("cam_rotmat"),
+            )
+            pred_verts = preds["global_output"]["global_verts"]
+            last_params = preds["smpl_out"][-1]
+        pred_verts = pred_verts.float()
         pred_j = select_h36m_joints(consts.j_regressor_h36m, pred_verts, mapper)
 
         # GT: either direct vertices (3dpw gendered) or pose/betas. The
@@ -155,7 +163,7 @@ def make_eval_step(
 
 def run_evaluation(
     cfg: WHMRConfig,
-    model: WHMR,
+    model: Optional[WHMR],
     consts: BodyConsts,
     batches: Iterable[Dict[str, torch.Tensor]],
     log_every: int = 10,
@@ -175,7 +183,8 @@ def run_evaluation(
     (reference eval.py:312-319 npz + mat dump).
     fixed_batch: pad every batch to exactly this size with zero rows of
     valid=0, which contribute nothing to the sums and are trimmed from the
-    result-file arrays.
+    result-file arrays (an exported bundle's fixed batch).
+    forward_override: see make_eval_step; `model` may then be None.
     """
     step = make_eval_step(
         cfg, model, gendered_smpl=gendered_smpl, joint_mapper=joint_mapper,
@@ -216,8 +225,9 @@ def run_evaluation(
                 metrics.update(s_mpjpe, s_pa, s_pve, n)
         pending.clear()
 
-    was_training = model.training
-    model.eval()
+    was_training = model is not None and model.training
+    if model is not None:
+        model.eval()
     try:
         for i, batch in enumerate(batches):
             batch, n = place(batch)
@@ -236,7 +246,8 @@ def run_evaluation(
                 )
         flush()
     finally:
-        model.train(was_training)
+        if model is not None:
+            model.train(was_training)
     if result_file and collected:
         np.savez(result_file, **{k: np.concatenate(v) for k, v in collected.items()})
         print(f"[eval] per-sample results saved to {result_file}")

@@ -246,17 +246,8 @@ class WHMR(nn.Module):
         return out
 
     def camcalib(self, full_x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full frames (B, Hc, Wc, 3) -> (cam_rotmat, render_rotmat) (whmr.py:509-524).
-
-        The bin logits are decoded in fp32 whatever the compute dtype: the
-        angles and rotations are geometry.
-        """
-        logits, _ = self.cam_model(full_x.permute(0, 3, 1, 2))
-        _, pitch, roll = decode_cam_angles(*(l.detach().float() for l in logits))
-        zeros = torch.zeros_like(pitch)
-        cam_rotmat = euler_to_rotmat(torch.stack([pitch, zeros, roll], dim=-1))
-        render_rotmat = euler_to_rotmat(torch.stack([-pitch, zeros, roll], dim=-1))
-        return cam_rotmat, render_rotmat
+        """Full frames (B, Hc, Wc, 3) -> (cam_rotmat, render_rotmat) (whmr.py:509-524)."""
+        return camcalib(self.cam_model, full_x)
 
     def iuv_logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) frames -> (B, Hm, Wm, 15) ann-index logits through the
@@ -265,6 +256,18 @@ class WHMR(nn.Module):
             raise ValueError("iuv_logits needs pymaf.aux_supv_on (dp_head not built)")
         s_feat = self.deconv_layers(self.feature_extractor(x.permute(0, 3, 1, 2)))
         return self.dp_head(s_feat)["predict_ann_index"]
+
+
+def camcalib(cam_model: CamCalibNet, full_x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`WHMR.camcalib` on the CamCalib network alone (a serving export holds
+    only that network). The bin logits are decoded in fp32 whatever the
+    compute dtype: the angles and rotations are geometry."""
+    logits, _ = cam_model(full_x.permute(0, 3, 1, 2))
+    _, pitch, roll = decode_cam_angles(*(l.detach().float() for l in logits))
+    zeros = torch.zeros_like(pitch)
+    cam_rotmat = euler_to_rotmat(torch.stack([pitch, zeros, roll], dim=-1))
+    render_rotmat = euler_to_rotmat(torch.stack([-pitch, zeros, roll], dim=-1))
+    return cam_rotmat, render_rotmat
 
 
 _DECODERS = ("decpose", "decshape", "deccam", "decrot")

@@ -20,6 +20,14 @@ Each wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; it never falls back from one to the other, nor from one
 variant to the other. Both are forward-only: whmr_tpu defines no VJP for its
 kernels, and the backward here raises rather than dropping gradients.
+
+K1 is also the operator `torch.ops.whmr.attention` (`attention_op`, a
+`torch.library.custom_op`), which `attention` calls while a trace runs
+(`torch.export`, `torch.compile`): the trace keeps it in a serving program
+as one node, where it could trace neither the ctypes launch nor an
+autograd.Function. Eager calls launch through the wrapper directly, without
+the dispatcher's host cost. Its variant follows from N, D and the dtype,
+never from the batch, so a program with a symbolic batch stays symbolic.
 """
 
 from __future__ import annotations
@@ -126,7 +134,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"attention takes (B, H, N, D) q, k, v of one shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, n, d = q.shape
-    if min(b, h, n) < 1 or not 1 <= d <= _MAX_D:
+    # Each size on its own: `min()` over a symbolic batch (torch.export)
+    # would guard the batch against the head count.
+    if b < 1 or h < 1 or n < 1 or not 1 <= d <= _MAX_D:
         raise ValueError(f"attention takes B, H, N >= 1 and 1 <= D <= {_MAX_D}, got {tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention takes contiguous q, k, v")
@@ -191,11 +201,30 @@ class _Attention(torch.autograd.Function):
         )
 
 
+@torch.library.custom_op("whmr::attention", mutates_args=())
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1 as the operator `torch.ops.whmr.attention`, so that `torch.export`
+    keeps it in an exported graph as one node (it cannot trace the ctypes
+    launch). Importing this module registers it; a program that holds it is
+    loaded after that import (`inference/export.py::load_exported`). Its
+    body is the wrapper's: K1 on CUDA tensors, counted, and the plain
+    version on CPU tensors."""
+    return _forward(q, k, v, False)
+
+
+@attention_op.register_fake
+def _attention_fake(q, k, v):
+    return torch.empty_like(q)
+
+
 def _apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool) -> torch.Tensor:
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _Attention.apply(q, k, v, per_batch)  # its backward raises
-    return _forward(q, k, v, per_batch)  # no graph to build: skip autograd's per-call cost
+    if not per_batch and torch.compiler.is_compiling():
+        return attention_op(q, k, v)  # a trace records K1 as one node
+    # No graph to build: skip autograd's and the dispatcher's per-call cost.
+    return _forward(q, k, v, per_batch)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -29,6 +30,10 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Serialises `build_all` and `load`: the threads of one process (a server's
+# request threads, its batching worker and a warm-up) may reach a kernel's
+# first use together, and each kernel is then built, and loaded, once.
+_build_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -56,6 +61,11 @@ def build_all(names, force: bool = False) -> Dict[str, str]:
     ptxas prints registers, shared memory and spills per kernel). Raises
     RuntimeError when any nvcc fails, after all have ended.
     """
+    with _build_lock:
+        return _build_all(names, force)
+
+
+def _build_all(names, force: bool) -> Dict[str, str]:
     outputs = {name: "" for name in names}
     running = {}
     for name in names:
@@ -63,7 +73,9 @@ def build_all(names, force: bool = False) -> Dict[str, str]:
         if out.exists() and not force:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # Unique to the process and the thread: two builders never write
+        # into one temporary file.
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out)
@@ -82,13 +94,15 @@ def build_all(names, force: bool = False) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed (cached per process)."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
-    return lib
+    """The kernel's shared library, built first if needed (cached per
+    process; the first use from several threads builds it once)."""
+    with _build_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib
 
 
 _PTXAS_FUNCTION = re.compile(r"(?:Compiling entry function '|Function properties for )([^'\s]+)")
