@@ -81,8 +81,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside the bare step and the fit step, the loader's host ms a batch,
    the eval's crops/s by protocol and the parts render's ms a batch through
    `ops/rasterizer.py::rasterize`. Its run directory lives under build/
-   and is deleted after phase 9, which serves its checkpoint.
-9. Serving path: the serving CLIs at full width, bf16, vit.attn_impl
+   and is deleted after phases 9 and 10, which use its data and checkpoint.
+9. Parallel path, on phase 8's dataset, in two torchrun launches of this
+   script in its rank mode (`--rank`), each rank running its jobs one
+   after the other (one rank: the unsharded whmr-train and the one-rank
+   Trainer with torchrun's variables hidden, so without a process group,
+   then (a) and (c) on NCCL; two gloo ranks: (b)), and reporting each
+   job's launch counts, peak memory and seconds. The training runs are
+   deterministic
+   (torch.use_deterministic_algorithms): the step's backward sums with
+   atomics, and two plain runs of it differ. (a) `whmr-train` (main(argv)
+   in the rank) at one NCCL rank, 3 steps of B=64 as in phase 8, data
+   parallel and `--fsdp`: the group statistics, global denominators,
+   gradient sync and sharded optimizer all go through NCCL, and the metric
+   records and final parameters equal the unsharded `whmr-train` run
+   without a process group bit for bit (FSDP within 1e-6 relative, the largest difference
+   printed; the difference to phase 8's run is printed); (b) two ranks
+   sharing the card over gloo, a Trainer at data parallel (32 rows a rank
+   of the global B=64), FSDP and TP (where gloo carries their collectives
+   on CUDA tensors; a line names any it does not), 3 fp32 steps with drop
+   path and dropout on, against the one-rank Trainer without a process
+   group on the same global batches: the loss within 1e-4 relative at each step and the
+   parameters within 1e-4 relative (2-norm over the model); (c) `whmr-eval
+   --data_parallel 1` (fp32, "pallas", B=32) equal to phase 8's metric
+   within 1e-4. K2 launches once a step on
+   every rank, K1 12 times a forward batch in (c), K1 and K3 never in
+   training; the ranks' counts go into the kernels line. Times: ms a step
+   of each run beside the bare step, peak memory a rank. One card cannot
+   time scaling across cards.
+10. Serving path: the serving CLIs at full width, bf16, vit.attn_impl
    "pallas" (K1 on tensor cores), 8 crops a device batch, on the checkpoint
    of phase 8, in-process through main(argv) or `serve_cli.build_server`
    on 127.0.0.1 port 0. `whmr-export --camcalib split`, and `--eval` with
@@ -113,6 +140,7 @@ Output: a line with the card's name and power limit, one JSON line
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -143,6 +171,7 @@ from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.ops import rasterizer_kernel as k2
 from whmr_tpu_torch.ops.iuv import iuv_img2map
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
+from whmr_tpu_torch.parallel.mesh import gather_full, init_distributed
 from whmr_tpu_torch.inference import demo_cli, eval_cli, export_cli, serve_cli, video_cli
 from whmr_tpu_torch.inference import evaluate as evaluate_module
 from whmr_tpu_torch.inference.detector_eval import composite_frames, posed_vertices
@@ -196,6 +225,23 @@ CLI_IMAGES, CLI_ANNOTATED = 192, 64
 CLI_TRAIN_BATCH, CLI_TRAIN_STEPS, CLI_EVAL_BATCH = 64, 3, 32
 # whmr-eval's metric protocol against run_evaluation called directly.
 CLI_METRIC_RTOL = 1e-4
+# The parallel path: whmr-train under torchrun at one NCCL rank against
+# the unsharded whmr-train (data parallel bit for bit; FSDP within
+# FSDP_RTOL, its reductions round in another order); two gloo ranks sharing
+# the card against the one-rank step at the global batches (PAR_RTOL);
+# whmr-eval --data_parallel 1 against phase_cli's metric (CLI_METRIC_RTOL).
+FSDP_RTOL, PAR_RTOL = 1e-6, 1e-4
+PAR_BATCHES = 3
+# The train step's backward sums with atomics, so two runs of it differ
+# (phase_parallel prints its runs' difference to phase_cli's); the
+# parallel path's training runs are deterministic
+# (torch.use_deterministic_algorithms, which needs this cuBLAS workspace)
+# so that they compare bit for bit.
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# What torchrun tells a rank of its group.
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+# What FSDP2 and DTensor's tensor parallelism call beside all_reduce.
+SHARDED_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor")
 # The serving path: bf16, vit.attn_impl="pallas", 8 crops a device batch;
 # the live server takes 64 requests from 8 clients (4 more in flight at the
 # drain), the bundle server 16; whmr-video a 12-frame clip.
@@ -1198,6 +1244,281 @@ def phase_cli(consts, train_ms, fit_ms, root):
     return launches, paths, m
 
 
+def _launch(nproc, root, label, jobs, timeout=600):
+    """`chip_smoke.py --rank REPORT JOBS` on `nproc` ranks under torchrun,
+    with a fixed cuBLAS workspace (DETERMINISTIC_ENV). JOBS, a list of
+    (mode, name, argv, alone), run one after the other in each rank, so the
+    launch pays its process start, kernel load and imports once. Returns
+    each job's reports by rank (`rank_main`) and the launch's seconds."""
+    report = root / f"ranks-{label}"
+    script = [str(Path(__file__).resolve()), "--rank", str(report), json.dumps(jobs)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc), *script]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=Path(__file__).resolve().parent,
+                         env={**os.environ, **DETERMINISTIC_ENV})
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-3000:], flush=True)
+        print(res.stderr[-8000:], file=sys.stderr, flush=True)
+    check(res.returncode == 0, f"the {label} launch ({' '.join(cmd[1:6])} ...) exited {res.returncode}")
+    ranks = []
+    for r in range(nproc):
+        with open(f"{report}.{r}.json") as f:
+            ranks.append(json.load(f))
+    return {job[1]: [rank[job[1]] for rank in ranks] for job in jobs}, secs
+
+
+@contextlib.contextmanager
+def _without_group_env():
+    """torchrun's variables hidden: whmr-train, init_distributed() and
+    `_par_rank` then take their paths without a process group."""
+    saved = {k: os.environ.pop(k) for k in TORCHRUN_ENV if k in os.environ}
+    try:
+        yield
+    finally:
+        os.environ.update(saved)
+
+
+def _par_batches(cfg, consts):
+    """The global batches of the two-rank run: B = cfg.train.batch_size,
+    keypoints from the GT joints."""
+    b = cfg.train.batch_size
+    return [make_keypoints_consistent(consts, make_example_train_batch(cfg, b, seed=10 + i), seed=20 + i)
+            for i in range(PAR_BATCHES)]
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| over a dict of tensors, worst leaf."""
+    worst = 0.0
+    for k, w in want.items():
+        w = w.float()
+        worst = max(worst, (got[k].float() - w).abs().max().item() / max(w.abs().max().item(), 1e-30))
+    return worst
+
+
+def _norm_rel(got, want):
+    """|got - want| / |want|, 2-norms over every tensor of a dict: Adam
+    moves each parameter by about the learning rate a step whatever the
+    gradient's size, so a near-zero gradient whose sign rounds the other
+    way moves a zero-initialised leaf by its whole scale; the norm over the
+    model weighs such elements by their size."""
+    num = sum((got[k].double() - w.double()).square().sum().item() for k, w in want.items())
+    den = sum(w.double().square().sum().item() for w in want.values())
+    return (num / den) ** 0.5
+
+
+def _par_rank(out):
+    """The two-rank run's Trainer steps: with a process group (two ranks on
+    one card over gloo), data parallel and, where gloo carries their
+    collectives on CUDA tensors, FSDP and TP; without one, the one-rank
+    reference. Each fed the same global batches; rank 0 saves each case's
+    gathered parameters beside `out`. In fp32: in bf16 a GEMM of 32 rows
+    and one of 64 round some outputs a bf16 ulp apart, and Adam turns the
+    sign of each near-zero gradient into a whole step (the two-rank bf16
+    parameters read 1.3e-4 relative on an H100), which would hide the
+    sharded arithmetic this compares."""
+    cases, missing, rank = [("one", 1, False)], [], 0
+    if "WORLD_SIZE" in os.environ:
+        init_distributed(backend="gloo")
+        rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+        x = torch.ones(4, device="cuda")
+        for name in SHARDED_COLLECTIVES:
+            try:
+                if name == "all_gather_into_tensor":
+                    torch.distributed.all_gather_into_tensor(torch.empty(4 * world, device="cuda"), x)
+                else:
+                    torch.distributed.reduce_scatter_tensor(torch.empty(4 // world, device="cuda"), x)
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as e:  # gloo names what it does not support
+                missing.append(f"{name}: {type(e).__name__}: {str(e)[:120]}")
+        cases = [("dp", 1, False)] + ([] if missing else [("fsdp", 1, True), ("tp", world, False)])
+    cfg = WHMRConfig()
+    report = {"missing": missing, "cases": {}}
+    for name, model_parallel, fsdp in cases:
+        tr = Trainer(cfg, f"{out}-{name}", dtype=torch.float32, device="cuda", seed=0,
+                     model_parallel=model_parallel, fsdp=fsdp)
+        tr.train_epoch(iter(_par_batches(cfg, tr.consts)), log_every=1)
+        torch.cuda.synchronize()
+        params = gather_full(tr.model, tr.state.params)
+        if rank == 0:
+            torch.save(params, f"{out}-{name}.pt")
+            report["cases"][name] = [r for r in _records(tr.metrics.path) if "loss" in r]
+        del tr, params
+        torch.cuda.empty_cache()
+    return report
+
+
+def rank_main(argv):
+    """`chip_smoke.py --rank REPORT JOBS`: one rank of a phase_parallel
+    launch under torchrun. Runs each job of JOBS (a JSON list of [mode,
+    name, argv, alone]) in turn: mode train runs whmr-train's main(argv),
+    eval whmr-eval's, steps `_par_rank` on files named after `name` under
+    REPORT's directory; an `alone` job runs with torchrun's variables
+    hidden, as a plain process would, and must come before any job that
+    joins the process group. The training modes run with
+    torch.use_deterministic_algorithms (the backward's atomics otherwise
+    make two runs of the same step differ). Writes REPORT.<rank>.json with
+    each job's launch counts, peak device memory, seconds and result."""
+    report, jobs = argv[0], json.loads(argv[1])
+    out = {}
+    for mode, name, job_argv, alone in jobs:
+        torch.use_deterministic_algorithms(mode != "eval")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with _without_group_env() if alone else contextlib.nullcontext():
+            check(not (alone and torch.distributed.is_initialized()), f"job {name} must run before the group")
+            if mode == "train":
+                result = {"step": train_cli.main(job_argv).state.step}
+            elif mode == "eval":
+                result = eval_cli.main(job_argv)
+            else:
+                result = _par_rank(str(Path(report).parent / name))
+        torch.cuda.synchronize()
+        out[name] = {"launches": read_launches(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "secs": time.perf_counter() - t0, "result": result}
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(f"{report}.{os.environ.get('RANK', '0')}.json", "w") as f:
+        json.dump(out, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def _train_launches_ok(n, steps, label):
+    check(n["rasterizer"] == steps, f"{label}: K2 launched {n['rasterizer']} times, want 1 a step ({steps})")
+    check(n["attention"] == 0 and n["fused_attention"] == 0, f"{label}: K1 or K3 launched in training")
+
+
+def _gaps(recs):
+    return [(recs[i + 1]["time"] - recs[i]["time"]) * 1e3 for i in range(len(recs) - 1)]
+
+
+def _compare_runs(root, name, ref, parts=("params", "batch_stats")):
+    """(records' relative difference, parameters' and BatchNorm buffers'
+    relative and absolute difference, bit for bit?) of run `name` against
+    run `ref`, both whmr-train runs under `root`."""
+    recs = [r for r in _records(root / name / "metrics.jsonl") if "loss" in r]
+    want_recs = [r for r in _records(root / ref / "metrics.jsonl") if "loss" in r]
+    check([r["step"] for r in recs] == [r["step"] for r in want_recs], f"{name}: records at {recs}")
+    rec_rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                  for g, w in zip(recs, want_recs) for k in w if k not in ("time", "step"))
+    ckpt = Path("checkpoints") / str(CLI_TRAIN_STEPS) / "payload.pt"
+    got = torch.load(root / name / ckpt, weights_only=True, mmap=True)
+    want = torch.load(root / ref / ckpt, weights_only=True, mmap=True)
+    par_rel = max(_rel(got[part], want[part]) for part in parts)
+    par_abs = max((got[part][k] - v).abs().max().item() for part in parts for k, v in want[part].items())
+    exact = rec_rel == 0.0 and all(torch.equal(got[part][k], v) for part in parts for k, v in want[part].items())
+    return recs, rec_rel, par_rel, par_abs, exact
+
+
+def phase_parallel(root, paths, cli_metric, train_ms):
+    """The parallel path (the module's docstring, phase 9), in two torchrun
+    launches: one rank for the unsharded whmr-train and the one-rank
+    Trainer (without a process group), then whmr-train's data parallel and
+    --fsdp runs and whmr-eval --data_parallel 1 on NCCL; two gloo ranks for
+    the Trainer steps. Returns the launch counts of every rank of every
+    run."""
+    t_phase = time.perf_counter()
+    train = ["--train_npz", paths["npz"], "--img_dir", paths["img_dir"], "--log_dir", str(root), "--bf16",
+             "--batch_size", str(CLI_TRAIN_BATCH), "--num_epochs", "1", "--steps_per_epoch", str(CLI_TRAIN_STEPS),
+             "--log_every", "1", "--device", "cuda"]
+    evaluate = ["--checkpoint", str(root / "train" / "checkpoints"), "--img_dir", paths["img_dir"],
+                "--dataset_npz", paths["npz"], "--batch_size", str(CLI_EVAL_BATCH), "--device", "cuda",
+                "--data_parallel", "1", "--misc", "vit.attn_impl", "pallas"]
+    nccl, nccl_secs = _launch(1, root, "nccl", [("train", "one", train + ["--name", "one"], True),
+                                                ("steps", "steps-one", [], True),
+                                                ("train", "dp1", train + ["--name", "dp1"], False),
+                                                ("train", "fsdp1", train + ["--name", "fsdp1", "--fsdp"], False),
+                                                ("eval", "eval-dp1", evaluate, False)])
+    gloo, gloo_secs = _launch(2, root, "gloo", [("steps", "steps", [], False)])
+    log(f"parallel: the launches took {nccl_secs:.1f} s one rank (whmr-train and the Trainer without a group, "
+        f"then whmr-train dp and --fsdp and whmr-eval on NCCL), {gloo_secs:.1f} s two gloo ranks")
+    runs = {**nccl, **gloo}
+    launches = [rep["launches"] for reps in runs.values() for rep in reps]
+
+    # (a) whmr-train under torchrun at one NCCL rank, data parallel and
+    # FSDP, against the unsharded whmr-train run without a process group,
+    # each run deterministic.
+    for name in ("one", "dp1", "fsdp1"):
+        (rep,) = runs[name]
+        _train_launches_ok(rep["launches"], CLI_TRAIN_STEPS, f"whmr-train {name}")
+        recs, rec_rel, par_rel, par_abs, exact = _compare_runs(root, name, "one")
+        _, cli_rel, cli_par, _, _ = _compare_runs(root, name, "train")
+        if name == "dp1":
+            check(exact, f"whmr-train under torchrun (data parallel, one rank) differs from the unsharded run: "
+                         f"records {rec_rel:.3g}, parameters {par_rel:.3g} relative ({par_abs:.3g} absolute)")
+        elif name == "fsdp1":
+            check(rec_rel <= FSDP_RTOL and par_rel <= FSDP_RTOL,
+                  f"whmr-train --fsdp (one rank) against the unsharded run: records {rec_rel:.3g}, parameters "
+                  f"{par_rel:.3g} relative, want <= {FSDP_RTOL}")
+        how = {"one": "alone (no process group)", "dp1": "under torchrun, one NCCL rank, data parallel",
+               "fsdp1": "under torchrun, one NCCL rank, --fsdp"}[name]
+        log(f"parallel: whmr-train {how}, deterministic: "
+            + ("" if name == "one" else
+               f"{'bit for bit' if exact else 'not bit for bit'} against the unsharded run (records "
+               f"{rec_rel:.3g}, parameters and BatchNorm buffers {par_rel:.3g} relative, {par_abs:.3g} absolute); ")
+            + f"against phase_cli's run (not deterministic) records {cli_rel:.3g}, parameters {cli_par:.3g}; "
+            f"{np.mean(_gaps(recs)):.2f} ms a step between metric records {[round(g, 2) for g in _gaps(recs)]} "
+            f"against the bare train_step's {train_ms:.2f} ms; peak {rep['peak_gib']:.2f} GiB; launches "
+            f"{rep['launches']}; {rep['secs']:.1f} s the run in its launch")
+
+    # (b) Two gloo ranks sharing the card against the one-rank Trainer at
+    # the same global batches.
+    (one,), reps = runs["steps-one"], runs["steps"]
+    one_recs = one["result"]["cases"]["one"]
+    one_params = torch.load(root / "steps-one-one.pt", weights_only=True, mmap=True)
+    result = reps[0]["result"]
+    for line in result["missing"]:
+        log(f"parallel: gloo does not carry {line} on CUDA tensors: the two-rank FSDP and TP cases rest on "
+            f"tests/test_torch_parallel.py (CPU)")
+    check("dp" in result["cases"], "the two-rank data-parallel run reported nothing")
+    _train_launches_ok(one["launches"], PAR_BATCHES, "the one-rank Trainer")
+    per_rank = PAR_BATCHES * len(result["cases"])
+    for r, rep in enumerate(reps):
+        _train_launches_ok(rep["launches"], per_rank, f"gloo rank {r}")
+    b = WHMRConfig().train.batch_size
+    for name, recs in result["cases"].items():
+        loss_rel = [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(recs, one_recs)]
+        term_rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                       for g, w in zip(recs, one_recs) for k in w if k.startswith("loss_"))
+        norm_rel = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"] for g, w in zip(recs, one_recs))
+        got = torch.load(root / f"steps-{name}.pt", weights_only=True, mmap=True)
+        par_rel = _norm_rel(got, one_params)
+        par_abs = max((got[k] - v).abs().max().item() for k, v in one_params.items())
+        rows = b // 2 if name != "tp" else b
+        log(f"parallel: two gloo ranks on one card, {name} ({rows} rows a rank of the global B={b}), fp32, "
+            f"deterministic: "
+            f"loss {[f'{x:.3g}' for x in loss_rel]} relative to the one-rank Trainer's, step by step (the worst "
+            f"loss term {term_rel:.3g}, grad_norm {norm_rel:.3g}); parameters {par_rel:.3g} relative (2-norm over "
+            f"the model; {par_abs:.3g} the largest element's difference); {np.mean(_gaps(recs)):.2f} ms a step "
+            f"between metric records {[round(g, 2) for g in _gaps(recs)]} against the one-rank Trainer's "
+            f"{np.mean(_gaps(one_recs)):.2f} ms and the bare train_step's {train_ms:.2f} ms")
+        check(len(recs) == PAR_BATCHES and max(loss_rel) <= PAR_RTOL and par_rel <= PAR_RTOL,
+              f"two gloo ranks ({name}) against the one-rank step: loss {max(loss_rel):.3g}, parameters "
+              f"{par_rel:.3g} relative, want <= {PAR_RTOL}")
+    log(f"parallel: peak {one['peak_gib']:.2f} GiB one rank, {[round(rep['peak_gib'], 2) for rep in reps]} GiB the "
+        f"gloo ranks; launches {[rep['launches'] for rep in reps]}; {one['secs']:.1f} s the one-rank run and "
+        f"{reps[0]['secs']:.1f} s the two-rank runs in their launches")
+
+    # (c) whmr-eval --data_parallel 1 under torchrun against phase_cli's metric.
+    (rep,) = runs["eval-dp1"]
+    m, n = rep["result"], rep["launches"]
+    batches = -(-CLI_IMAGES // CLI_EVAL_BATCH)
+    check(n["attention"] == 12 * batches and n["attention.mma"] == 0,
+          f"whmr-eval --data_parallel 1: K1 launched {n['attention']} times ({n['attention.mma']} on tensor cores), "
+          f"want 12 a forward batch ({batches} batches) on CUDA cores")
+    check(n["rasterizer"] == 0 and n["fused_attention"] == 0, "whmr-eval --data_parallel 1: K2 or K3 launched")
+    rel = max(abs(m[k] - cli_metric[k]) / abs(cli_metric[k]) for k in ("pve", "mpjpe", "pa_mpjpe"))
+    check(m["count"] == CLI_IMAGES and rel <= CLI_METRIC_RTOL,
+          f"whmr-eval --data_parallel 1 {m} against phase_cli's {cli_metric}: relative {rel}")
+    log(f"parallel: whmr-eval --data_parallel 1 under torchrun: PVE {m['pve']:.3f}, MPJPE {m['mpjpe']:.3f}, "
+        f"PA-MPJPE {m['pa_mpjpe']:.3f} mm, {rel:.3g} relative to phase_cli's one-process run; peak "
+        f"{rep['peak_gib']:.2f} GiB; launches {n}; {rep['secs']:.1f} s the run in its launch")
+    log(f"parallel: phase_parallel took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _post(url, body, timeout=600):
     req = urllib.request.Request(url, data=body, method="POST")
     with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -1670,6 +1991,7 @@ def main():
     root.mkdir(parents=True)
     try:
         cli_launches, paths, cli_metric = phase_cli(train_consts, train_ms, fit_ms, root)
+        par_launches = phase_parallel(root, paths, cli_metric, train_ms)
         t0 = time.perf_counter()
         serve_launches = phase_serve(root, paths, cli_metric)
         log(f"serve: phase_serve took {time.perf_counter() - t0:.1f} s")
@@ -1684,7 +2006,7 @@ def main():
     # whmr-train's K2) and the serving path's (K1 on tensor cores in every
     # export check, server, eval, demo and video run), each read over its
     # run; K3's, checked to be 0.
-    runs = list(cli_launches.values()) + list(serve_launches.values())
+    runs = list(cli_launches.values()) + par_launches + list(serve_launches.values())
     for k in kernels:
         k["launches"] += sum(n[k["name"]] for n in runs)
         if k["mma_launches"] is not None:
@@ -1698,7 +2020,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        if sys.argv[1:2] == ["--rank"]:
+            rank_main(sys.argv[2:])
+        else:
+            main()
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -264,10 +264,16 @@ class TestTrainArguments:
             tcli.main(["--train_npz", str(tmp_path / "a.npz"), "--train_npz", str(tmp_path / "b.npz"),
                        "--img_dir", str(tmp_path)])
 
-    @pytest.mark.parametrize("flags,slice_", [(["--model_parallel", "2"], "slice 5"), (["--fsdp"], "slice 5"),
-                                              (["--regressor", "hmr"], "slice 6")])
-    def test_later_slices_raise(self, runs, tmp_path, flags, slice_):
-        with pytest.raises(NotImplementedError, match=slice_):
+    # Parallel training is ported (the cases keep the ids they had while
+    # it raised NotImplementedError): outside torchrun, with no process
+    # group, a mesh raises instead of training unsharded.
+    @pytest.mark.parametrize("flags,error,match", [
+        pytest.param(["--model_parallel", "2"], RuntimeError, "process group", id="flags0-slice 5"),
+        pytest.param(["--fsdp"], RuntimeError, "process group", id="flags1-slice 5"),
+        pytest.param(["--regressor", "hmr"], NotImplementedError, "slice 6", id="flags2-slice 6"),
+    ])
+    def test_later_slices_raise(self, runs, tmp_path, flags, error, match):
+        with pytest.raises(error, match=match):
             tcli.main(["--train_npz", runs["npz"], "--img_dir", runs["img_dir"], "--log_dir", str(tmp_path),
                        "--device", "cpu", *flags, "--misc", *TINY])
 
@@ -297,7 +303,9 @@ class TestEvalGuards:
         # (the case keeps the id it had while --bundle raised NotImplementedError)
         pytest.param(["--bundle", "b"], FileNotFoundError, "not a whmr-export bundle",
                      id="flags2-NotImplementedError-slice 4"),
-        (["--checkpoint", "CKPT", "--data_parallel", "2"], NotImplementedError, "slice 5"),
+        # ported here: outside torchrun --data_parallel names the launcher
+        pytest.param(["--checkpoint", "CKPT", "--data_parallel", "2"], SystemExit, "under torchrun",
+                     id="flags3-NotImplementedError-slice 5"),
         (["--checkpoint", "CKPT", "--regressor", "hmr"], NotImplementedError, "slice 6"),
         (["--checkpoint", "CKPT", "--eval_parts"], SystemExit, "--parts_dir"),
         (["--checkpoint", "CKPT", "--coco_ap"], SystemExit, "--coco_gt"),

@@ -4,6 +4,10 @@
   `convert_whmr_checkpoint` -> the port's `state_dict_from_flax` -> a strict
   `load_state_dict`; every key the converter consumes comes back bit-equal.
   The constant buffers it skips (convert.py:53-61) are out of scope.
+- The tensor-parallel qkv order (`parallel.qkv_tp_order`): reordering a
+  reference state_dict's qkv rows for 2 or 4 ranks and undoing it gives
+  the state_dict back bit for bit, and each rank's block holds its heads'
+  q, k and v rows.
 - Hygiene: no module of whmr_tpu_torch, and not chip_smoke.py, imports jax,
   flax, optax, orbax or whmr_tpu (not even its jax-free config and data
   modules); `build_model` without a device raises where CUDA is
@@ -45,6 +49,27 @@ def test_reference_checkpoint_round_trip():
     assert set(model.state_dict()) == set(sd)
 
 
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_tp_qkv_order_round_trips_the_reference_state_dict(ranks):
+    from whmr_tpu_torch.parallel import qkv_tp_order
+
+    ref = synthetic_reference_state_dict(tiny_config(), seed=4)
+    keys = [k for k in ref if ".attn.qkv." in k and k.startswith("feature_extractor.")]
+    assert keys
+    for key in keys:
+        full = torch.from_numpy(np.asarray(ref[key]))
+        dim = full.shape[0] // 3
+        order = qkv_tp_order(dim, ranks)
+        split = full[order]
+        assert torch.equal(split[order.argsort()], full), key
+        # rank r's contiguous block is [q_r | k_r | v_r]
+        w = dim // ranks
+        for r, block in enumerate(split.chunk(ranks)):
+            for part in range(3):
+                want = full[part * dim + r * w:part * dim + (r + 1) * w]
+                assert torch.equal(block[part * w:(part + 1) * w], want), (key, r, part)
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -75,6 +100,7 @@ def test_port_imports_no_jax_nor_whmr_tpu(tmp_path):
         "whmr_tpu_torch/inference/part_segm.py", "whmr_tpu_torch/inference/coco_eval.py",
         "whmr_tpu_torch/inference/agora.py", "whmr_tpu_torch/data/coco.py", "whmr_tpu_torch/data/tcmr.py",
         "whmr_tpu_torch/data/fits_dict.py", "whmr_tpu_torch/data/data_cli.py",
+        "whmr_tpu_torch/parallel/__init__.py", "whmr_tpu_torch/parallel/mesh.py",
     }
     for f in files:
         bad = _forbidden_imports(f)

@@ -30,6 +30,7 @@ from whmr_tpu_torch.inference.evaluate import run_evaluation
 from whmr_tpu_torch.models import whmr as twhmr
 from whmr_tpu_torch.models.smpl import smpl_params_from_assets as t_smpl_params
 from whmr_tpu_torch.ops import procrustes as tp
+from whmr_tpu_torch.parallel import make_mesh
 from whmr_tpu_torch.utils import testing as ttesting
 from whmr_tpu_torch.utils.convert import state_dict_from_flax
 
@@ -141,9 +142,11 @@ def test_run_evaluation_matches_whmr_tpu(carried, tmp_path, mapper):
 def test_eval_step_guards():
     model, _ = twhmr.build_model(ttesting.tiny_config(), dtype=torch.float32, device="cpu")
     cfg = ttesting.tiny_config()
-    for kw in ({"mesh": object()}, {"regressor": "hmr"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run_evaluation(cfg, model, None, [], **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        run_evaluation(cfg, model, None, [], regressor="hmr")
+    # data-parallel evaluation is ported: its mesh needs a process group
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh()
     # forward_override (an exported bundle's program) is ported: no model needed
     assert run_evaluation(cfg, None, None, [], forward_override=lambda *a: a)["count"] == 0
     b, nb = device_eval_batch({"img": np.zeros((2, 4, 4, 3)), "pose": np.zeros((2, 72)), "junk": np.zeros(2)},

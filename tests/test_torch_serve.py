@@ -109,9 +109,10 @@ ONE = [Detection(80.0, 100.0, 90.0)]
 TWO = [Detection(60.0, 100.0, 90.0), Detection(110.0, 90.0, 70.0)]
 
 
-def _submit_in_order(ex, jobs):
-    """Start one submit thread a job, each enqueued before the next starts;
-    returns the results list (filled as they finish) and the threads."""
+def _submit_in_order(ex, jobs, base=0):
+    """Start one submit thread a job, each enqueued before the next starts,
+    behind the `base` requests already queued; returns the results list
+    (filled as they finish) and the threads."""
     results, threads = [None] * len(jobs), []
     for k, (img, dets) in enumerate(jobs):
         def run(k=k, img=img, dets=dets):
@@ -120,9 +121,9 @@ def _submit_in_order(ex, jobs):
         threads.append(threading.Thread(target=run))
         threads[-1].start()
         deadline = time.time() + 30
-        while ex.q.qsize() < k + 1 and time.time() < deadline:
+        while ex.q.qsize() < base + k + 1 and time.time() < deadline:
             time.sleep(0.005)
-    assert ex.q.qsize() == len(jobs)
+    assert ex.q.qsize() == base + len(jobs)
     return results, threads
 
 
@@ -194,7 +195,8 @@ def test_cancelled_orphan_is_skipped(pipe):
     ex = BatchingExecutor(pipe, max_wait_ms=1.0, start=False)
     with pytest.raises(TimeoutError):
         ex.submit(_img(9), dets=ONE, timeout=0.01)  # no worker: times out
-    results, threads = _submit_in_order(ex, [(_img(9), ONE)])
+    # the timed-out orphan is still queued ahead of the live request
+    results, threads = _submit_in_order(ex, [(_img(9), ONE)], base=1)
     first = ex.q.get(timeout=30)
     assert first.cancelled
     live = ex.q.get(timeout=30)

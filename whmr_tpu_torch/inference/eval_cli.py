@@ -28,9 +28,19 @@ Protocol variants carried over from the reference:
 - `--bundle dir/` (instead of `--checkpoint`) scores an eval-variant
   export (`whmr-export --eval`): the metric protocol runs the exact
   deployed program, padded to its fixed batch when it has one.
+- `--data_parallel N` scores the metric protocol on N ranks, one process
+  each, under torchrun (N must equal its world size):
 
-Not ported yet, and raising NotImplementedError: `--data_parallel`
-(slice 5) and `--regressor hmr` (slice 6).
+      torchrun --nproc_per_node N -m whmr_tpu_torch.inference.eval_cli \\
+          --data_parallel N --checkpoint ... --dataset_npz ... --img_dir ...
+
+  Every rank reads the same batches and scores its rows of each
+  (`run_evaluation(mesh=)`); the metrics equal the one-process run's, and
+  rank 0 prints them and writes `--result_file`. `--eval_parts`,
+  `--coco_ap` and `--bundle` refuse it, as in whmr_tpu.
+
+Not ported yet, and raising NotImplementedError: `--regressor hmr`
+(slice 6).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from whmr_tpu_torch.data.loader import host_tensor
 
@@ -82,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parts_template", default="{stem}.png",
                    help="GT part-map filename from the image stem")
     p.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                   help="shard eval batches over N devices (not ported yet: slice 5)")
+                   help="score the metric protocol on N ranks: run under torchrun with N processes")
     p.add_argument("--loader_procs", type=int, default=0,
                    help="fork-based loader worker processes (0 = threads); "
                         "same knob as whmr-train")
@@ -107,6 +118,22 @@ def resolve_device(name: str) -> torch.device:
 
 _EVAL_MODEL_KEYS = ("img", "center", "scale", "bbox_height", "orig_shape",
                     "bbox_info")
+
+
+def data_parallel_mesh(n: int, device: torch.device):
+    """The mesh of `--data_parallel N`: the N ranks of a torchrun launch
+    (or of a process group already joined) on the data axis."""
+    from whmr_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(f"--data_parallel {n} runs one process a rank: launch whmr-eval under "
+                             f"torchrun --nproc_per_node {n}")
+        init_distributed(backend="gloo" if device.type == "cpu" else None)
+    world = dist.get_world_size()
+    if n != world:
+        raise SystemExit(f"--data_parallel {n} but the process group has {world} ranks: they must be equal")
+    return make_mesh(n, device_type=device.type)
 
 
 def device_eval_batch(host_batch, extra_keys=(), warn_identity=False, device=None):
@@ -256,8 +283,6 @@ def main(argv=None):
             "pass exactly one of --checkpoint (live model) or --bundle "
             "(frozen eval-variant export)"
         )
-    if args.data_parallel and not args.bundle:
-        raise NotImplementedError("--data_parallel is not ported yet (slice 5)")
     ds = NpzDataset(cfg, args.dataset_npz, args.img_dir, is_train=False)
     # The checks of the arguments and labels come before the model is built.
     if args.eval_parts and not args.parts_dir:
@@ -283,7 +308,9 @@ def main(argv=None):
                 "cam_rotmat and pass --allow_identity_cam for camera-frame eval."
             )
 
-    served = forward_override = model = None
+    served = forward_override = model = mesh = None
+    if args.data_parallel and not args.bundle:
+        mesh = data_parallel_mesh(args.data_parallel, resolve_device(args.device))
     if args.bundle:
         served, consts, assets, forward_override = load_bundle_state(args, cfg)
     else:
@@ -338,12 +365,13 @@ def main(argv=None):
         gendered_smpl=gendered_smpl, joint_mapper=joint_mapper,
         result_file=args.result_file, regressor=args.regressor,
         forward_override=forward_override,
-        fixed_batch=served.batch_size if served is not None else None,
+        fixed_batch=served.batch_size if served is not None else None, mesh=mesh,
     )
-    print(
-        f"*** Final Results ***\nPVE: {result['pve']:.2f}\n"
-        f"MPJPE: {result['mpjpe']:.2f}\nPA-MPJPE (Reconstruction Error): {result['pa_mpjpe']:.2f}"
-    )
+    if mesh is None or dist.get_rank() == 0:
+        print(
+            f"*** Final Results ***\nPVE: {result['pve']:.2f}\n"
+            f"MPJPE: {result['mpjpe']:.2f}\nPA-MPJPE (Reconstruction Error): {result['pa_mpjpe']:.2f}"
+        )
     return result
 
 

@@ -10,8 +10,14 @@ boundary or the end, so the host reads them back once, not once a batch.
 The port's model holds its own weights, so where whmr_tpu passes
 `variables` to the eval step, the port passes the model (None when a
 `forward_override`, an exported bundle's program, predicts instead). The
-data-parallel `mesh=` (slice 5) and the HMR baseline (`regressor="hmr"`,
-slice 6) are not ported yet and raise.
+HMR baseline (`regressor="hmr"`, slice 6) is not ported yet and raises.
+
+Data-parallel evaluation (`mesh=`): every rank is handed the same batches
+(as whmr_tpu's device_put of a host batch) and scores its rows of each,
+the batch zero-padded with valid=0 rows to a multiple of the data axis.
+The per-batch sums are summed over the data group at each read-back, so
+every rank returns the one-process metrics; rank 0 gathers the per-sample
+arrays in dataset order and alone writes `result_file`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from whmr_tpu_torch.config import WHMRConfig
 from whmr_tpu_torch.data.assets import H36M_TO_J14, H36M_TO_J17
@@ -28,6 +35,7 @@ from whmr_tpu_torch.models.regressor import BodyConsts
 from whmr_tpu_torch.models.smpl import select_h36m_joints, smpl_forward, vertices2joints
 from whmr_tpu_torch.models.whmr import WHMR
 from whmr_tpu_torch.ops.procrustes import batch_compute_similarity_transform
+from whmr_tpu_torch.parallel.mesh import axis_index, axis_size, data_group, is_main
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
 
 
@@ -55,9 +63,7 @@ class EvalMetrics:
         }
 
 
-def _not_ported(regressor, mesh):
-    if mesh is not None:
-        raise NotImplementedError("data-parallel evaluation (mesh=) is not ported yet (slice 5)")
+def _not_ported(regressor):
     if regressor != "pymaf_net":
         raise NotImplementedError(f"regressor={regressor!r} is not ported yet (slice 6)")
 
@@ -69,7 +75,6 @@ def make_eval_step(
     joint_mapper: str = "j14",
     save_arrays: bool = False,
     regressor: str = "pymaf_net",
-    mesh=None,
     forward_override=None,
 ):
     """Eval step: (consts, batch) -> ((sum_mpjpe, sum_pa, sum_pve, n), extras),
@@ -93,9 +98,10 @@ def make_eval_step(
 
     save_arrays=True also returns per-sample arrays for the result-file dump
     (eval.py:312-319): the 17 H36M pred joints, mapped/centered pred, gt and
-    Procrustes-aligned pred, pose/betas/cam.
+    Procrustes-aligned pred, pose/betas/cam. The step scores the rows it
+    is given: `run_evaluation(mesh=)` splits them over the data ranks.
     """
-    _not_ported(regressor, mesh)
+    _not_ported(regressor)
     mapper = H36M_TO_J17 if joint_mapper == "j17" else H36M_TO_J14
 
     @torch.no_grad()
@@ -185,23 +191,31 @@ def run_evaluation(
     valid=0, which contribute nothing to the sums and are trimmed from the
     result-file arrays (an exported bundle's fixed batch).
     forward_override: see make_eval_step; `model` may then be None.
+    mesh: data-parallel evaluation over the mesh's "data" axis (see the
+    module's docstring); every rank of the data group must call it with
+    the same batches.
     """
     step = make_eval_step(
         cfg, model, gendered_smpl=gendered_smpl, joint_mapper=joint_mapper,
-        save_arrays=result_file is not None, regressor=regressor, mesh=mesh,
+        save_arrays=result_file is not None, regressor=regressor,
         forward_override=forward_override,
     )
 
+    group = data_group(mesh)
+    ranks, index = axis_size(mesh, "data"), axis_index(mesh, "data")
+
     def place(batch):
         n = batch[next(iter(batch))].shape[0]
-        if fixed_batch is None:
+        if fixed_batch is None and ranks == 1:
             return batch, n
-        if n > fixed_batch:
+        if fixed_batch is not None and n > fixed_batch:
             raise ValueError(
                 f"batch of {n} exceeds the fixed eval shape {fixed_batch}; feed "
                 "batches of at most that size"
             )
-        pad = fixed_batch - n
+        size = n if fixed_batch is None else fixed_batch
+        size += -size % ranks
+        pad = size - n
         if pad:
             batch = {
                 k: torch.cat([v, v.new_zeros((pad, *v.shape[1:]))]) for k, v in batch.items()
@@ -211,7 +225,19 @@ def run_evaluation(
             # implies it, but masking must not silently depend on the
             # padding fill value.)
             batch["valid"][n:] = 0
+        if ranks > 1:
+            rows = size // ranks
+            batch = {k: v[index * rows:(index + 1) * rows] for k, v in batch.items()}
         return batch, n
+
+    def gathered(v):
+        """A per-sample array of the whole batch, in row order (rank 0
+        keeps it)."""
+        if ranks == 1:
+            return v
+        out = v.new_empty((v.shape[0] * ranks, *v.shape[1:]))
+        dist.all_gather_into_tensor(out, v.contiguous(), group=group)
+        return out
 
     metrics = EvalMetrics()
     collected: Dict[str, list] = {}
@@ -221,7 +247,10 @@ def run_evaluation(
 
     def flush():
         if pending:
-            for s_mpjpe, s_pa, s_pve, n in torch.stack(pending).cpu().tolist():
+            sums = torch.stack(pending)
+            if group is not None:
+                dist.all_reduce(sums, group=group)
+            for s_mpjpe, s_pa, s_pve, n in sums.cpu().tolist():
                 metrics.update(s_mpjpe, s_pa, s_pve, n)
         pending.clear()
 
@@ -236,11 +265,14 @@ def run_evaluation(
             if extras is not None:
                 # padded rows are trimmed from the dump
                 for k, v in extras.items():
-                    collected.setdefault(k, []).append(v[:n].float().cpu().numpy())
+                    v = gathered(v)
+                    if is_main():
+                        collected.setdefault(k, []).append(v[:n].float().cpu().numpy())
             if log_every and (i + 1) % log_every == 0:
                 flush()
                 r = metrics.result()
-                print(
+                if is_main():
+                    print(
                     f"[eval] {metrics.count} samples  MPJPE {r['mpjpe']:.2f}  "
                     f"PA-MPJPE {r['pa_mpjpe']:.2f}  PVE {r['pve']:.2f}"
                 )

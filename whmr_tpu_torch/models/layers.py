@@ -14,6 +14,8 @@ match a published reference checkpoint.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -22,6 +24,19 @@ from whmr_tpu_torch.ops.attention import attention
 
 def _cast(t, dtype):
     return None if t is None else t.to(dtype)
+
+
+def batch_rand(shape, generator, device, group=None) -> torch.Tensor:
+    """fp32 uniforms of `shape`, dim 0 the batch. With a data `group`, this
+    rank's rows of the draw for the global batch (the group's ranks hold
+    equal shares, in rank order), so one rank and R ranks draw the same
+    masks from the same generator state, as whmr_tpu's global draw does."""
+    if group is None:
+        return torch.rand(shape, generator=generator, device=device)
+    rank, ranks = dist.get_rank(group), dist.get_world_size(group)
+    b = shape[0]
+    full = torch.rand((b * ranks, *shape[1:]), generator=generator, device=device)
+    return full[rank * b:(rank + 1) * b]
 
 
 class Linear(nn.Linear):
@@ -80,7 +95,18 @@ class _FP32BatchNorm:
     them at flax's momentum. `F.batch_norm(training=True)` is not used: it
     updates the running variance with the unbiased variance, which would
     drift from whmr_tpu's by n/(n-1).
+
+    With a `data_group` (`parallel.shard_params`), training takes the mean
+    and E[x^2] over the group's global batch: one differentiable all_reduce
+    sums each rank's pair weighted by 1/R (the ranks hold equal shares), so
+    every rank normalises with, and moves its running statistics by, the
+    global batch's statistics (whmr_tpu's "a mean over the sharded batch
+    axis IS a global mean"). At one rank the weights are 1 and the numbers
+    are those without a group, bit for bit. nn.SyncBatchNorm is not used:
+    it refuses CPU tensors.
     """
+
+    data_group = None
 
     def forward(self, x):
         xf = x.float()
@@ -92,7 +118,11 @@ class _FP32BatchNorm:
             return y.to(self.compute_dtype)
         dims = [0] + list(range(2, x.dim()))
         mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        mean_sq = (xf * xf).mean(dims)
+        if self.data_group is not None:
+            stats = torch.cat([mean, mean_sq]) * (1.0 / dist.get_world_size(self.data_group))
+            mean, mean_sq = dist_nn.all_reduce(stats, group=self.data_group).chunk(2)
+        var = (mean_sq - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
             self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
@@ -117,7 +147,11 @@ class Dropout(nn.Module):
     """Element dropout in training (flax `nn.Dropout`): keep with 1 - p,
     scale kept values by 1/(1 - p). The keep draws are fp32 uniforms from
     the given `torch.Generator` (nn.Dropout takes none), so a bf16 and an
-    fp32 model with the same generator state drop the same elements."""
+    fp32 model with the same generator state drop the same elements; with a
+    `data_group`, this rank's rows of the global batch's draw
+    (`batch_rand`)."""
+
+    data_group = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -127,7 +161,7 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = batch_rand(x.shape, generator, x.device, self.data_group) < keep
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -218,6 +252,11 @@ class Attention(nn.Module):
     impl "einsum": whmr_tpu's default formulation in plain torch (q scaled in
     the compute dtype, fp32 softmax). impl "pallas": the hand-written CUDA
     kernel K1 (ops/attention.py), with whmr_tpu's kernel numerics.
+
+    Under tensor parallelism (`parallel.shard_params`) `qkv` yields this
+    rank's [q_r | k_r | v_r] columns, so the forward runs on the local heads
+    (the width it is given over `head_dim`) and the row-parallel `proj`
+    sums over the model group.
     """
 
     def __init__(self, dim, num_heads, qkv_bias=True, dtype=torch.float32, impl="einsum"):
@@ -227,14 +266,18 @@ class Attention(nn.Module):
         if impl not in ("einsum", "pallas"):
             raise ValueError(f"unknown attention impl {impl!r}")
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.impl = impl
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, x):
-        b, n, c = x.shape
-        head_dim = c // self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, head_dim)
+        b, n, _ = x.shape
+        head_dim = self.head_dim
+        qkv = self.qkv(x)
+        heads = qkv.shape[-1] // (3 * head_dim)  # num_heads, or the local heads under TP
+        c = heads * head_dim
+        qkv = qkv.reshape(b, n, 3, heads, head_dim)
         if self.impl == "einsum":
             q, k, v = qkv.unbind(2)  # (B, N, H, D)
             attn = torch.einsum("bnhd,bmhd->bhnm", q * head_dim**-0.5, k)

@@ -14,14 +14,17 @@ import torch
 import torch.nn as nn
 
 from whmr_tpu_torch.config import ViTConfig
-from whmr_tpu_torch.models.layers import MLP, Attention, Conv2d, LayerNorm
+from whmr_tpu_torch.models.layers import MLP, Attention, Conv2d, LayerNorm, batch_rand
 
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth in training (vendored vit.py:47-58): keep
     a sample's branch with 1 - p and scale it by 1/(1 - p). The draws are
     fp32 uniforms from the given `torch.Generator` (a compute-dtype draw
-    would quantize the keep probability)."""
+    would quantize the keep probability); with a `data_group`, this rank's
+    rows of the global batch's draw (`layers.batch_rand`)."""
+
+    data_group = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -32,7 +35,7 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.p
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        mask = batch_rand(shape, generator, x.device, self.data_group) < keep
         return x / keep * mask.to(x.dtype)
 
 

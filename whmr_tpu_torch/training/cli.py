@@ -8,9 +8,21 @@ over the port's Trainer, NpzDataset and BatchLoader. Run it as
 It trains on the card unless `--device cpu` is given, and raises when there
 is no card; it never falls back. Beside whmr_tpu's parser: `--device`;
 `--bf16` computes in torch.bfloat16; `--profile` writes a torch.profiler
-trace. `--model_parallel > 1`, `--fsdp` and `--regressor hmr` reach the
-port's Trainer, which raises NotImplementedError naming their slice. The
-loader runs one host (the multi-host loader slices come with slice 5).
+trace. `--regressor hmr` reaches the port's Trainer, which raises
+NotImplementedError naming its slice.
+
+Parallel training runs one process a card under torchrun, which the CLI
+detects by its environment and joins (`parallel.init_distributed`):
+
+    torchrun --nproc_per_node 8 -m whmr_tpu_torch.training.cli --train_npz ... [--model_parallel 2] [--fsdp]
+
+Every rank is on the data axis unless `--model_parallel M` splits the ViT
+blocks over M adjacent ranks; `--fsdp` shards the parameters and Adam's
+moments over the data axis. `--batch_size` is the global batch. Each data
+rank loads from its disjoint slice of the epoch (`num_hosts`/`host_index`
+from the data rank, as whmr_tpu's cli.py:169-176) and trains on its rows
+of those batches (`training/trainer.py`); rank 0 writes the logs and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -54,9 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "bare vitpose backbone) or a checkpoint dir of the port; "
                         "optimizer/epoch start fresh (reference "
                         "base_trainer.load_pretrained + pose_vit.py:21)")
-    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel ranks a ViT block (under torchrun)")
     p.add_argument("--fsdp", action="store_true",
-                   help="ZeRO-3-style parameter and optimizer-state sharding over the data axis (not ported yet: slice 5)")
+                   help="ZeRO-3-style parameter and optimizer-state sharding over the data axis (under torchrun)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--ema_decay", type=float, default=None, metavar="D",
                    help="maintain an exponential moving average of the "
@@ -98,11 +111,13 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from whmr_tpu_torch.config import WHMRConfig, load_yaml
     from whmr_tpu_torch.data.loader import BatchLoader
     from whmr_tpu_torch.data.npz_dataset import MixtureDataset, NpzDataset
     from whmr_tpu_torch.inference.eval_cli import resolve_device
+    from whmr_tpu_torch.parallel.mesh import init_distributed
     from whmr_tpu_torch.training.trainer import Trainer
 
     cfg = load_yaml(args.cfg_file) if args.cfg_file else WHMRConfig()
@@ -151,6 +166,10 @@ def main(argv=None):
         1, len(dataset) // cfg.train.batch_size
     )
 
+    device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        # under torchrun: one process a rank
+        init_distributed(backend="gloo" if device.type == "cpu" else None)
     trainer = Trainer(
         cfg,
         log_dir,
@@ -160,7 +179,8 @@ def main(argv=None):
         steps_per_epoch=steps_per_epoch,
         fsdp=args.fsdp,
         regressor=args.regressor,
-        device=resolve_device(args.device),
+        device=device,
+        local_batches=True,
     )
     resumed = args.resume and trainer.resume()
     if resumed:
@@ -174,10 +194,12 @@ def main(argv=None):
         trainer.load_pretrained(args.pretrained)
 
     def loader_factory(epoch):
-        # One host: the per-host disjoint slices (DistributedSampler
-        # equivalent) come with torch.distributed in slice 5.
+        # Per-data-rank disjoint slices (DistributedSampler equivalent),
+        # each rank loading its B / D rows a step: without the slices every
+        # rank would feed the same samples.
         loader = BatchLoader(
-            dataset, cfg.train.batch_size, num_hosts=1, host_index=0,
+            dataset, cfg.train.batch_size // trainer.data_ranks,
+            num_hosts=trainer.data_ranks, host_index=trainer.data_index,
             num_procs=args.loader_procs,
         )
         loader.set_epoch(epoch)

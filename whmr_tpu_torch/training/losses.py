@@ -12,25 +12,65 @@ L1 at three mesh scales (l_i > 2 only), the camera depth regulariser and
 the focal-length MSE (focal_supv_on); plus the IUV cross-entropies and
 smooth-L1 U/V of the aux heads and the depth smooth-L1. `hmr_loss` waits
 for the HMR baseline.
+
+Under data parallelism (`group`, the data group) each rank holds its rows
+of the global batch, and the gradients are averaged over the group. A mean
+over the rows stays as it is (the average of equal shares' means is the
+global mean). A masked mean divides by the GLOBAL mask count (one
+all_reduce of the counts a step) and is scaled by R, so the average of the
+ranks' losses, and of their gradients, is the global batch's (whmr_tpu's
+global denominators, losses.py:41-42, :114-133, :169-171); the gates read
+the global count too. At one rank the scale is 1 and the numbers are those
+without a group.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from whmr_tpu_torch.config import WHMRConfig
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
 
 
-def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+class GlobalCount(NamedTuple):
+    """A mask's count over the data group's global batch, and the group's
+    size R, by which a rank's masked sum is scaled."""
+
+    total: torch.Tensor
+    ranks: int
+
+
+def global_counts(masks, group=None):
+    """One GlobalCount a mask, the counts summed over `group` in one
+    all_reduce (each rank's own count without a group)."""
+    totals = torch.stack([m.float().sum() for m in masks])
+    ranks = 1
+    if group is not None:
+        dist.all_reduce(totals, group=group)
+        ranks = dist.get_world_size(group)
+    return [GlobalCount(t, ranks) for t in totals.unbind()]
+
+
+def _share(num: torch.Tensor, count: GlobalCount) -> torch.Tensor:
+    """A rank's masked sum over the global count (gated at 0 valid)."""
+    total = count.total.to(num.dtype)
+    if count.ranks != 1:
+        num = num * count.ranks
+    return num / total.clamp(min=1.0) * total.clamp(max=1.0)
+
+
+def _masked_mean(err: torch.Tensor, mask: torch.Tensor, count: Optional[GlobalCount] = None) -> torch.Tensor:
     """Mean over the samples where mask = 1 of each sample's mean (0 if
-    none is valid): the reference's `err[mask].mean()`."""
+    none is valid): the reference's `err[mask].mean()`. `count`: the mask's
+    global count (the local one when None)."""
     per_sample = err.reshape(err.shape[0], -1).mean(dim=1)
     mask = mask.to(per_sample.dtype)
-    total = mask.sum()
-    return (per_sample * mask).sum() / total.clamp(min=1.0) * total.clamp(max=1.0)
+    if count is None:
+        count = GlobalCount(mask.sum(), 1)
+    return _share((per_sample * mask).sum(), count)
 
 
 def huber_loss(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -50,7 +90,7 @@ def keypoint_loss(pred_kp, gt_kp, openpose_weight: float, gt_weight: float, scal
     return err.mean()
 
 
-def keypoint_3d_loss(pred_kp3d, gt_kp3d, has_pose_3d):
+def keypoint_3d_loss(pred_kp3d, gt_kp3d, has_pose_3d, count=None):
     """Pelvis-aligned 3D keypoint MSE on the 24 GT joints (trainer.py:
     217-234); the pelvis is the mean of the hips (joints 2 and 3)."""
     pred = pred_kp3d[:, 25:]
@@ -59,34 +99,35 @@ def keypoint_3d_loss(pred_kp3d, gt_kp3d, has_pose_3d):
     gt_pelvis = (gt[:, 2:3] + gt[:, 3:4]) / 2
     pred_pelvis = (pred[:, 2:3] + pred[:, 3:4]) / 2
     err = conf * (pred - pred_pelvis - (gt - gt_pelvis)) ** 2
-    return _masked_mean(err, has_pose_3d)
+    return _masked_mean(err, has_pose_3d, count)
 
 
-def smpl_param_loss(pred_rotmat, pred_betas, gt_pose_aa, gt_betas, has_smpl):
+def smpl_param_loss(pred_rotmat, pred_betas, gt_pose_aa, gt_betas, has_smpl, count=None):
     """MSE on rotation matrices and betas of valid samples (trainer.py:244-258)."""
     gt_rotmat = batch_rodrigues(gt_pose_aa.reshape(-1, 3)).reshape(-1, 24, 3, 3)
     return (
-        _masked_mean((pred_rotmat - gt_rotmat) ** 2, has_smpl),
-        _masked_mean((pred_betas - gt_betas) ** 2, has_smpl),
+        _masked_mean((pred_rotmat - gt_rotmat) ** 2, has_smpl, count),
+        _masked_mean((pred_betas - gt_betas) ** 2, has_smpl, count),
     )
 
 
-def vertex_loss(pred_verts, gt_verts, has_smpl):
+def vertex_loss(pred_verts, gt_verts, has_smpl, count=None):
     """Per-vertex L1 (criterion_shape = nn.L1Loss, trainer.py:236-242)."""
-    return _masked_mean((pred_verts - gt_verts).abs(), has_smpl)
+    return _masked_mean((pred_verts - gt_verts).abs(), has_smpl, count)
 
 
 def iuv_losses(u_pred, v_pred, index_pred, ann_pred, uvia_gt: Dict[str, torch.Tensor], has_iuv,
-               point_regression_weight: float):
+               point_regression_weight: float, count: Optional[GlobalCount] = None):
     """DensePose-style aux losses on NHWC maps (trainer.py:260-301).
 
     uvia_gt: 'u', 'v' (B, H, W, 25), 'index' (B, H, W, 25 one-hot), 'ann'
     (B, H, W, 15 one-hot). Returns (loss_u, loss_v, loss_index, loss_ann).
+    `count`: has_iuv's global count (the local one when None).
     """
     b = index_pred.shape[0]
     mask = has_iuv.float()
-    total = mask.sum()
-    denom, gate = total.clamp(min=1.0), total.clamp(max=1.0)
+    if count is None:
+        count = GlobalCount(mask.sum(), 1)
 
     def onehot_ce(logits, onehot_target):
         # The GT maps are exact one-hots, so the cross-entropy is
@@ -95,8 +136,8 @@ def iuv_losses(u_pred, v_pred, index_pred, ann_pred, uvia_gt: Dict[str, torch.Te
         picked = (logits * onehot_target.float()).sum(dim=-1)
         return (torch.logsumexp(logits, dim=-1) - picked).reshape(b, -1).mean(dim=1)
 
-    loss_index = (onehot_ce(index_pred, uvia_gt["index"]) * mask).sum() / denom * gate
-    loss_ann = (onehot_ce(ann_pred, uvia_gt["ann"]) * mask).sum() / denom * gate
+    loss_index = _share((onehot_ce(index_pred, uvia_gt["index"]) * mask).sum(), count)
+    loss_ann = _share((onehot_ce(ann_pred, uvia_gt["ann"]) * mask).sum(), count)
     if point_regression_weight > 0 and u_pred is not None:
         # Smooth-L1 at each pixel's GT channel (channel 0, target 0, on the
         # background), summed and divided by the FULL batch: the reference
@@ -110,12 +151,14 @@ def iuv_losses(u_pred, v_pred, index_pred, ann_pred, uvia_gt: Dict[str, torch.Te
     return loss_u, loss_v, loss_index, loss_ann
 
 
-def depth_loss(pred_depth, gt_depth, has_depth, point_regression_weight: float):
+def depth_loss(pred_depth, gt_depth, has_depth, point_regression_weight: float, count=None):
     """Smooth-L1 inverse-depth loss (trainer.py:301-318): summed over the
-    valid samples' pixels, divided by the FULL batch."""
+    valid samples' pixels, divided by the FULL batch, gated on the global
+    count of valid samples (`count`; the local one when None)."""
     mask = has_depth.float()
+    total = mask.sum() if count is None else count.total
     per = huber_loss(pred_depth, gt_depth).reshape(pred_depth.shape[0], -1).sum(dim=1)
-    return (per * mask).sum() / pred_depth.shape[0] * point_regression_weight * mask.sum().clamp(max=1.0)
+    return (per * mask).sum() / pred_depth.shape[0] * point_regression_weight * total.clamp(max=1.0)
 
 
 def whmr_loss(
@@ -127,12 +170,15 @@ def whmr_loss(
     gt_temp_vertices: torch.Tensor,
     uvia_gt: Optional[Dict[str, torch.Tensor]] = None,
     depth_gt: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """The full loss over all MAF steps (trainer.py:466-609); 'loss' is the
     sum of the terms. preds: the WHMR forward's output; batch: the GT fields
     (keypoints, keypoints_world, pose, betas, pose_3d, has_smpl,
-    has_pose_3d, focal, bbox_height, bbox_width, orig_shape)."""
+    has_pose_3d, focal, bbox_height, bbox_width, orig_shape). `group`: the
+    data group, over which the masked denominators are global."""
     w = cfg.loss
+    n_smpl, n_pose_3d = global_counts([batch["has_smpl"], batch["has_pose_3d"]], group)
     loss_dict: Dict[str, torch.Tensor] = {}
     # World-keypoint rescale (trainer.py:501-508): orig / bbox, x and y swapped.
     kp_scale = batch["orig_shape"] / torch.stack([batch["bbox_height"], batch["bbox_width"]], dim=1)
@@ -142,7 +188,7 @@ def whmr_loss(
     for l_i in range(1, len(smpl_out)):
         out = smpl_out[l_i]
         lp, lb = smpl_param_loss(out["rotmat"], out["pred_shape"], batch["pose"], batch["betas"],
-                                 batch["has_smpl"])
+                                 batch["has_smpl"], n_smpl)
         loss_dict[f"loss_regr_pose_{l_i}"] = lp * w.pose_w
         loss_dict[f"loss_regr_betas_{l_i}"] = lb * w.shape_w
         if w.kp_2d_w > 0:
@@ -158,12 +204,12 @@ def whmr_loss(
                 ((out["focal_length"] - batch["focal"]) ** 2).mean() * w.focal_weights
             )
         loss_dict[f"loss_keypoints_3d_{l_i}"] = keypoint_3d_loss(
-            out["kp_3d"], batch["pose_3d"], batch["has_pose_3d"]
+            out["kp_3d"], batch["pose_3d"], batch["has_pose_3d"], n_pose_3d
         ) * w.kp_3d_w
         if w.vert_w > 0 and l_i > 2:
             for key, gt in (("", gt_vertices), ("_sub", gt_sub_vertices), ("_temp", gt_temp_vertices)):
                 name = "verts" if not key else f"{key[1:]}_verts"
-                loss_dict[f"loss_shape{key}_{l_i}"] = vertex_loss(out[name], gt, batch["has_smpl"]) * w.vert_w
+                loss_dict[f"loss_shape{key}_{l_i}"] = vertex_loss(out[name], gt, batch["has_smpl"], n_smpl) * w.vert_w
         # Positive-depth camera regulariser (trainer.py:586-588).
         loss_dict[f"loss_cam_{l_i}"] = (torch.exp(-out["pred_cam"][:, 0] * 10) ** 2).mean()
 
@@ -171,7 +217,7 @@ def whmr_loss(
         dp = preds["dp_out"][-1]
         lu, lv, lidx, lann = iuv_losses(
             dp["predict_u"], dp["predict_v"], dp["predict_uv_index"], dp["predict_ann_index"],
-            uvia_gt, batch["has_smpl"], w.point_regression_weights,
+            uvia_gt, batch["has_smpl"], w.point_regression_weights, n_smpl,
         )
         loss_dict["loss_U"] = lu
         loss_dict["loss_V"] = lv
@@ -179,7 +225,7 @@ def whmr_loss(
         loss_dict["loss_segAnn"] = lann * w.part_weights
     if depth_gt is not None and preds.get("dpth_out"):
         loss_dict["loss_Depth"] = depth_loss(
-            preds["dpth_out"][-1], depth_gt, batch["has_smpl"], w.point_regression_weights
+            preds["dpth_out"][-1], depth_gt, batch["has_smpl"], w.point_regression_weights, n_smpl
         )
     loss_dict["loss"] = sum(loss_dict.values())
     return loss_dict

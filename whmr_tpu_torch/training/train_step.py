@@ -9,12 +9,23 @@ are loss targets and run without autograd.
 
 PyTorch updates in place where JAX returns new trees: the `TrainState`
 holds the model's own parameter and BatchNorm-buffer tensors, so the
-optimizer writes into the model, and train-mode BatchNorm updates its
-running statistics during the forward. The step counter and Adam's count
-live on the host, so nothing in the step waits for the card.
+optimizer writes into the model (and into Adam's moments), and train-mode
+BatchNorm updates its running statistics during the forward. The step
+counter and Adam's count live on the host, so nothing in the step waits for
+the card. Gradients accumulate in the parameters' `.grad` (FSDP2 reduces
+them there) and are taken out after the backward.
 
-The sharded step (`make_jitted_train_step`'s mesh arguments), the HMR
-baseline's `hmr_train_step` and `fused_adam` wait for later slices.
+On a mesh (`TrainState.mesh`, `parallel.shard_params`), each rank holds its
+rows of the global batch. After the backward (the last microbatch's, under
+grad_accum) the gradients that FSDP does not reduce are averaged over the
+data group in flat buckets (the psum GSPMD inserts in whmr_tpu); the
+global-norm clip counts each shard once over the mesh; Adam and the EMA
+update each rank's shards; and the metrics are the group's means, so
+every rank reads the global batch's losses. At one rank the numbers are
+those without a mesh, bit for bit, except that FSDP's reductions may
+round differently.
+
+The HMR baseline's `hmr_train_step` and `fused_adam` wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,6 +38,14 @@ import torch
 
 from whmr_tpu_torch.config import FOCAL_LENGTH, IMG_NORM_MEAN, IMG_NORM_STD, WHMRConfig
 from whmr_tpu_torch.models.regressor import BodyConsts
+from whmr_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    data_group,
+    fsdp_managed,
+    local_tensors,
+    sharded_global_norm,
+    sharded_over,
+)
 from whmr_tpu_torch.models.smpl import smpl_forward
 from whmr_tpu_torch.models.whmr import WHMR
 from whmr_tpu_torch.ops.camera import estimate_translation
@@ -79,16 +98,25 @@ class Optimizer:
             nu=[torch.zeros_like(p) for p in params],
         )
 
-    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState) -> AdamState:
-        """Updates `params` in place from `grads`; returns the new state."""
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
+             norm: Optional[torch.Tensor] = None) -> AdamState:
+        """Updates `params` and the moments in place from `grads`; returns
+        the new state. Sharded tensors (DTensors) update their local
+        shards; `norm` is then the gradients' global norm over the mesh
+        (computed here when None)."""
         if self.clip_norm > 0:
-            norm = global_norm(grads)
+            if norm is None:
+                norm = global_norm(grads)
             factor = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
-            grads = torch._foreach_mul(grads, factor)
+            grads = torch._foreach_mul(local_tensors(grads), factor)
+        grads = local_tensors(grads)
+        params = local_tensors(params)
         count = state.count + 1
-        mu = torch._foreach_mul(state.mu, _B1)
+        mu = local_tensors(state.mu)
+        torch._foreach_mul_(mu, _B1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - _B1))
-        nu = torch._foreach_mul(state.nu, _B2)
+        nu = local_tensors(state.nu)
+        torch._foreach_mul_(nu, _B2)
         torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - _B2))
         # Bias corrections in fp32, as optax's `1 - decay**count`.
         bc1 = float(np.float32(1.0) - np.float32(_B1) ** np.float32(count))
@@ -101,7 +129,7 @@ class Optimizer:
         torch._foreach_mul_(upd, -self.learning_rate(state.count))
         with torch.no_grad():
             torch._foreach_add_(params, upd)
-        return AdamState(count=count, mu=mu, nu=nu)
+        return AdamState(count=count, mu=state.mu, nu=state.nu)
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -136,22 +164,40 @@ class TrainState:
     tx: Optimizer
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     ema_decay: float = 0.0
+    mesh: Optional[object] = None  # the DeviceMesh of a sharded step
 
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
+    @property
+    def sharded(self) -> bool:
+        """Whether any parameter is split over the mesh (FSDP or TP)."""
+        return any(sharded_over(p) for p in self.params.values())
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm of the (synchronised) gradients, each shard
+        counted once when the parameters are split over the mesh."""
+        if self.mesh is not None and self.sharded:
+            return sharded_global_norm(grads, self.mesh)
+        return global_norm(grads)
+
+    def apply_gradients(self, grads: Dict[str, torch.Tensor], norm: Optional[torch.Tensor] = None) -> "TrainState":
         names = list(self.params)
         params = [self.params[k] for k in names]
-        self.opt_state = self.tx.step(params, [grads[k] for k in names], self.opt_state)
+        grads = [grads[k] for k in names]
+        if norm is None and self.tx.clip_norm > 0:
+            norm = self.grad_norm(grads)
+        self.opt_state = self.tx.step(params, grads, self.opt_state, norm)
         if self.ema_params is not None:
             d = self.ema_decay
-            ema = [self.ema_params[k] for k in names]
+            ema = local_tensors(self.ema_params[k] for k in names)
             torch._foreach_mul_(ema, d)
-            torch._foreach_add_(ema, torch._foreach_mul([p.detach() for p in params], 1.0 - d))
+            torch._foreach_add_(ema, torch._foreach_mul(local_tensors(p.detach() for p in params), 1.0 - d))
         self.step += 1
         return self
 
 
-def create_train_state(cfg: WHMRConfig, model: WHMR, steps_per_epoch: int = 1) -> TrainState:
-    """Puts `model` in train mode and wraps its tensors with a fresh Adam."""
+def create_train_state(cfg: WHMRConfig, model: WHMR, steps_per_epoch: int = 1, mesh=None) -> TrainState:
+    """Puts `model` in train mode and wraps its tensors with a fresh Adam.
+    On a `mesh`, call it after `parallel.shard_params`: the moments and EMA
+    weights are made like the (sharded) parameters."""
     model.train()
     params = dict(model.named_parameters())
     batch_stats = {
@@ -167,6 +213,7 @@ def create_train_state(cfg: WHMRConfig, model: WHMR, steps_per_epoch: int = 1) -
         tx=tx,
         ema_params=({k: p.detach().clone() for k, p in params.items()} if ema_decay > 0 else None),
         ema_decay=ema_decay,
+        mesh=mesh,
     )
 
 
@@ -240,6 +287,70 @@ def gt_targets(cfg: WHMRConfig, consts: BodyConsts, batch: Dict[str, torch.Tenso
     return gt_vertices, gt_sub, gt_temp, uvia_gt, depth_gt
 
 
+def _backward(
+    cfg: WHMRConfig,
+    model: WHMR,
+    state: TrainState,
+    consts: BodyConsts,
+    batch: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    render_consts: Optional[RenderConsts] = None,
+) -> Dict[str, torch.Tensor]:
+    """Forward, loss and backward of one (micro)batch: the gradients add
+    into the parameters' `.grad`, the BatchNorm running statistics update in
+    place. Returns the losses (this rank's, on a mesh)."""
+    gt_vertices, gt_sub, gt_temp, uvia_gt, depth_gt = gt_targets(cfg, consts, batch, render_consts)
+    preds = model(
+        consts, _model_input(batch), batch["center"], batch["scale"], batch["bbox_height"],
+        batch["orig_shape"], batch["bbox_info"], train=True, meta_masks=batch.get("meta_mask"),
+        generator=generator,
+    )
+    losses = whmr_loss(cfg, preds, batch, gt_vertices, gt_sub, gt_temp, uvia_gt=uvia_gt,
+                       depth_gt=depth_gt, group=data_group(state.mesh))
+    losses["loss"].backward()
+    return {k: v.detach() for k, v in losses.items()}
+
+
+def _zero_grads(state: TrainState) -> None:
+    for p in state.params.values():
+        p.grad = None
+
+
+def _take_grads(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The accumulated gradients (zeros for parameters the loss does not
+    reach, as JAX gives), each in its parameter's placement; clears `.grad`."""
+    grads = {}
+    for k, p in state.params.items():
+        g = p.grad
+        if g is None:
+            g = torch.zeros_like(p.detach())
+        elif getattr(g, "placements", None) is not None and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        grads[k] = g
+        p.grad = None
+    return grads
+
+
+def _sync(state: TrainState, grads: Dict[str, torch.Tensor], losses: Dict[str, torch.Tensor]):
+    """On a mesh: the gradients FSDP does not reduce, averaged over the data
+    group (bucketed), and the losses as the group's means (one all_reduce)."""
+    group = data_group(state.mesh)
+    if group is None:
+        return losses
+    all_reduce_mean(local_tensors(g for k, g in grads.items() if not fsdp_managed(state.params[k])), group)
+    stacked = torch.stack([v.float() for v in losses.values()])
+    all_reduce_mean([stacked], group)
+    return {k: v.to(losses[k].dtype) for k, v in zip(losses, stacked.unbind())}
+
+
+def _set_fsdp_sync(model: WHMR, sync: bool) -> None:
+    """Whether FSDP reduces gradients in this backward (off for all but the
+    last grad_accum microbatch)."""
+    for m in model.modules():
+        if hasattr(m, "set_requires_gradient_sync"):
+            m.set_requires_gradient_sync(sync, recurse=False)
+
+
 def _microbatch_grads(
     cfg: WHMRConfig,
     model: WHMR,
@@ -250,22 +361,11 @@ def _microbatch_grads(
     render_consts: Optional[RenderConsts] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Gradients (zeros for parameters the loss does not reach, as JAX
-    gives) and losses of one (micro)batch; BatchNorm running statistics
-    update in place."""
-    gt_vertices, gt_sub, gt_temp, uvia_gt, depth_gt = gt_targets(cfg, consts, batch, render_consts)
-    preds = model(
-        consts, _model_input(batch), batch["center"], batch["scale"], batch["bbox_height"],
-        batch["orig_shape"], batch["bbox_info"], train=True, meta_masks=batch.get("meta_mask"),
-        generator=generator,
-    )
-    losses = whmr_loss(cfg, preds, batch, gt_vertices, gt_sub, gt_temp, uvia_gt=uvia_gt,
-                       depth_gt=depth_gt)
-    names = list(state.params)
-    grads = torch.autograd.grad(losses["loss"], [state.params[k] for k in names], allow_unused=True)
-    grads = {
-        k: torch.zeros_like(state.params[k]) if g is None else g for k, g in zip(names, grads)
-    }
-    return grads, {k: v.detach() for k, v in losses.items()}
+    gives) and losses of one (micro)batch, this rank's; BatchNorm running
+    statistics update in place."""
+    _zero_grads(state)
+    losses = _backward(cfg, model, state, consts, batch, generator, render_consts)
+    return _take_grads(state), losses
 
 
 def train_step(
@@ -278,11 +378,12 @@ def train_step(
     render_consts: Optional[RenderConsts] = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step; metrics are the losses and the pre-clip
-    gradient norm, as device scalars."""
+    gradient norm, as device scalars (the global batch's on a mesh)."""
     grads, losses = _microbatch_grads(cfg, model, state, consts, batch, generator, render_consts)
-    metrics = dict(losses)
-    metrics["grad_norm"] = global_norm(list(grads.values()))
-    return state.apply_gradients(grads), metrics
+    metrics = _sync(state, grads, losses)
+    norm = state.grad_norm(list(grads.values()))
+    metrics["grad_norm"] = norm
+    return state.apply_gradients(grads, norm), metrics
 
 
 def train_step_accum(
@@ -298,21 +399,24 @@ def train_step_accum(
     shaped (K, micro, ...)). Gradients and losses are averaged over the K
     microbatches (the mean of per-group means, as the reference's DDP
     all-reduce across ranks, trainer.py:614); BatchNorm statistics chain from
-    one microbatch to the next."""
+    one microbatch to the next. On a mesh the gradients are synchronised
+    once, after the last microbatch."""
     accum = next(iter(batches.values())).shape[0]
-    gsum, lsum = None, None
-    for i in range(accum):
-        grads, losses = _microbatch_grads(
-            cfg, model, state, consts, {k: v[i] for k, v in batches.items()}, generator,
-            render_consts,
-        )
-        if gsum is None:
-            gsum, lsum = grads, losses
-        else:
-            gsum = {k: gsum[k] + g for k, g in grads.items()}
-            lsum = {k: lsum[k] + v for k, v in losses.items()}
+    _zero_grads(state)
+    lsum = None
+    try:
+        for i in range(accum):
+            _set_fsdp_sync(model, i == accum - 1)
+            losses = _backward(cfg, model, state, consts, {k: v[i] for k, v in batches.items()}, generator,
+                               render_consts)
+            lsum = losses if lsum is None else {k: lsum[k] + v for k, v in losses.items()}
+    finally:
+        _set_fsdp_sync(model, True)
     inv = 1.0 / accum
+    gsum = _take_grads(state)
+    metrics = _sync(state, gsum, lsum)
     grads = {k: g * inv for k, g in gsum.items()}
-    metrics = {k: v * inv for k, v in lsum.items()}
-    metrics["grad_norm"] = global_norm(list(grads.values()))
-    return state.apply_gradients(grads), metrics
+    metrics = {k: v * inv for k, v in metrics.items()}
+    norm = state.grad_norm(list(grads.values()))
+    metrics["grad_norm"] = norm
+    return state.apply_gradients(grads, norm), metrics

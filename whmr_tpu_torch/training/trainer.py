@@ -15,8 +15,38 @@ Trainer / `core/base_trainer.py` BaseTrainer) around the port's train step:
 
 The loop decides its log and save cadence from host counters, so the only
 host syncs are the metric read-back at log steps and the checkpoint
-snapshots. The sharded trainer (`mesh`, `model_parallel`, `fsdp`) and the
-HMR baseline (`regressor="hmr"`) are not ported yet and raise.
+snapshots. The HMR baseline (`regressor="hmr"`) is not ported yet and
+raises.
+
+Parallel training (`mesh`, `model_parallel`, `fsdp`, as whmr_tpu's
+Trainer takes them) runs one process a rank on a `torch.distributed`
+process group (`parallel.init_distributed`); a Trainer asked for a mesh
+without one raises. With a process group and no mesh, the mesh is every
+rank on the data axis. `cfg.train.batch_size` is the GLOBAL batch and
+must divide by the data axis (and by it times grad_accum).
+
+The batch a rank is fed, for data index d of D (the ranks of one data
+index, the model axis, are fed alike):
+
+- `local_batches=True`: the loader yields the rank's own B / D rows. This
+  is how `whmr-train` runs, as the reference's DDP with a
+  DistributedSampler does: each data rank loads batches of B / D from its
+  disjoint slice of the epoch (`BatchLoader(num_hosts=D, host_index=d)`),
+  so an epoch is N / B steps on every rank and each sample is decoded once.
+- otherwise every rank is handed batches of the global size B and keeps
+  its rows, [d * B / D, (d + 1) * B / D) (under grad_accum, those rows of
+  each microbatch), as whmr_tpu's `device_put` of a host batch onto the
+  global batch sharding keeps the rows of the process's own devices
+  (trainer.py:385-400). A caller that feeds every rank the same global
+  batches (the tests) takes exactly the one-process step.
+
+Only rank 0 writes metric records, the
+config and checkpoints. Under FSDP or TP a save gathers the full tensors
+on rank 0 (every rank takes part) and writes today's format in the
+reference layout, so a sharded run's checkpoint loads into a one-process
+Trainer bit for bit and the other way round; `resume` cuts each rank's
+shards from it. The SIGTERM save is collective: the ranks agree on the
+flag at each step boundary, over a host (gloo) group.
 """
 
 from __future__ import annotations
@@ -31,11 +61,24 @@ from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from whmr_tpu_torch.config import WHMRConfig
 from whmr_tpu_torch.data.assets import get_assets
 from whmr_tpu_torch.data.loader import device_prefetch, host_tensor
 from whmr_tpu_torch.models.whmr import build_model
+from whmr_tpu_torch.parallel.mesh import (
+    axis_index,
+    axis_size,
+    gather_full,
+    is_main,
+    is_sharded,
+    load_full_state_dict,
+    make_mesh,
+    place_full,
+    shard_opt_state,
+    shard_params,
+)
 from whmr_tpu_torch.training.gt_renderer import build_render_consts
 from whmr_tpu_torch.training.train_step import AdamState, create_train_state, train_step, train_step_accum
 from whmr_tpu_torch.utils import profiling
@@ -46,14 +89,19 @@ _TORCH_CKPT_SUFFIXES = (".pt", ".pth", ".tar", ".ckpt")
 
 
 class MetricWriter:
-    """JSON-lines metric log (one object per record)."""
+    """JSON-lines metric log (one object per record). A disabled writer
+    (the ranks other than 0) opens nothing and writes nothing."""
 
-    def __init__(self, log_dir: str, name: str = "metrics"):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: str, name: str = "metrics", enabled: bool = True):
         self.path = os.path.join(log_dir, f"{name}.jsonl")
-        self._f = open(self.path, "a")
+        self._f = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(self.path, "a")
 
     def write(self, step: int, payload: Dict[str, Any]):
+        if self._f is None:
+            return
         rec = {"step": int(step), "time": time.time()}
         for k, v in payload.items():
             try:
@@ -64,7 +112,8 @@ class MetricWriter:
         self._f.flush()
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class Trainer:
@@ -82,9 +131,8 @@ class Trainer:
         fsdp: bool = False,
         regressor: str = "pymaf_net",
         device=None,
+        local_batches: bool = False,
     ):
-        if mesh is not None or model_parallel != 1 or fsdp:
-            raise NotImplementedError("the sharded trainer (mesh, model_parallel, fsdp) is not ported yet (slice 5)")
         if regressor != "pymaf_net":
             raise NotImplementedError(f"regressor={regressor!r} is not ported yet (slice 6)")
         if device is None:
@@ -92,6 +140,18 @@ class Trainer:
                 raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
             device = "cuda"
         self.device = torch.device(device)
+        if mesh is None and (model_parallel != 1 or fsdp or dist.is_initialized()):
+            # Raises without a process group: never quietly unsharded.
+            mesh = make_mesh(model_parallel=model_parallel, device_type=self.device.type)
+        elif mesh is not None and not dist.is_initialized():
+            raise RuntimeError("a Trainer on a mesh needs an initialised process group (parallel.init_distributed)")
+        if mesh is not None and model_parallel not in (1, axis_size(mesh, "model")):
+            raise ValueError(f"model_parallel={model_parallel} but the mesh's model axis is {axis_size(mesh, 'model')}")
+        self.mesh = mesh
+        self.data_ranks = axis_size(mesh, "data")
+        self.data_index = axis_index(mesh, "data")
+        self.local_batches = local_batches
+        self.is_main = is_main()
         self.cfg = cfg
         self.log_dir = log_dir
         self.regressor = regressor
@@ -114,13 +174,26 @@ class Trainer:
             if aux_rendering and (cfg.pymaf.aux_supv_on or cfg.pymaf.depth_supv_on)
             else None
         )
-        self.state = create_train_state(cfg, self.model, steps_per_epoch=steps_per_epoch)
+        if mesh is not None:
+            shard_params(self.model, mesh, fsdp=fsdp)
+        self.state = create_train_state(cfg, self.model, steps_per_epoch=steps_per_epoch, mesh=mesh)
         self.accum = max(int(cfg.train.grad_accum), 1)
         if self.accum > 1 and cfg.train.batch_size % self.accum:
             raise ValueError(
                 f"train.grad_accum={self.accum} must divide "
                 f"train.batch_size={cfg.train.batch_size}"
             )
+        micro = cfg.train.batch_size // self.accum
+        if micro % self.data_ranks:
+            raise ValueError(
+                f"batch size {micro} (train.batch_size/grad_accum) must be divisible by the mesh's "
+                f"data axis ({self.data_ranks})"
+            )
+        # The host group on which the ranks agree on a preemption flag
+        # without waiting for the card.
+        self._flag_group = None
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            self._flag_group = dist.new_group(backend="gloo")
         self.ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
         # EMA weights go to a sibling dir with a weights-only payload —
         # restore_weights accepts both flavors.
@@ -128,11 +201,12 @@ class Trainer:
             CheckpointManager(os.path.join(log_dir, "checkpoints_ema"))
             if self.state.ema_params is not None else None
         )
-        self.metrics = MetricWriter(log_dir)
+        self.metrics = MetricWriter(log_dir, enabled=self.is_main)
         # Run-config dump (reference utils/train_utils.py:54-65 writes
         # args.json + cfg.yaml into the run dir).
-        with open(os.path.join(log_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        if self.is_main:
+            with open(os.path.join(log_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
         self.epoch = 0
         # Mid-epoch resume position (reference base_trainer.py:45-48,
         # trainer.py:346: `checkpoint_batch_idx` skips already-seen batches).
@@ -195,6 +269,30 @@ class Trainer:
     def _weights(self, params) -> Dict[str, Any]:
         return {"params": params, "batch_stats": self.state.batch_stats}
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the model is split over the mesh (FSDP or TP)."""
+        return is_sharded(self.model)
+
+    def _full(self, tree):
+        """Under FSDP/TP, `tree` with every tensor dict keyed by parameter
+        name gathered into full host tensors in the reference layout on
+        rank 0 (collective; the other ranks get {} leaves); else `tree`."""
+        if not self.sharded:
+            return tree
+        if isinstance(tree, dict) and tree and all(isinstance(v, torch.Tensor) for v in tree.values()):
+            return gather_full(self.model, tree)
+        if isinstance(tree, dict):
+            return {k: self._full(v) for k, v in tree.items()}
+        return tree
+
+    @torch.no_grad()
+    def _place(self, live: Dict[str, torch.Tensor], full: Dict[str, torch.Tensor]) -> None:
+        """Copy full tensors (a checkpoint's) into live ones, each rank its
+        shards."""
+        for k, t in live.items():
+            place_full(self.model, k, t, full[k])
+
     @torch.no_grad()
     def resume(self) -> bool:
         """Load the latest checkpoint into the live state: parameters,
@@ -204,23 +302,18 @@ class Trainer:
         payload = self.ckpt.restore(template=self._payload(0))
         if payload is None:
             return False
-        for k, p in self.state.params.items():
-            p.copy_(payload["params"][k])
-        for k, b in self.state.batch_stats.items():
-            b.copy_(payload["batch_stats"][k])
+        self._place(self.state.params, payload["params"])
+        self._place(self.state.batch_stats, payload["batch_stats"])
         opt = payload["opt_state"]
-        names = list(self.state.params)
-        self.state.opt_state = AdamState(
-            count=int(opt["count"]), mu=[opt["mu"][k] for k in names], nu=[opt["nu"][k] for k in names],
-        )
+        mu, nu = (shard_opt_state(self.model, opt[m], self.state.params) for m in ("mu", "nu"))
+        self.state.opt_state = AdamState(count=int(opt["count"]), mu=list(mu.values()), nu=list(nu.values()))
         self.state.step = int(payload["step"])
         if self.ckpt_ema is not None:
             ema = self.ckpt_ema.restore(template=self._weights(self.state.ema_params))
             # older run without an EMA dir: restart the average from the
             # restored params
             src = ema["params"] if ema is not None else payload["params"]
-            for k, e in self.state.ema_params.items():
-                e.copy_(src[k])
+            self._place(self.state.ema_params, src)
         self.epoch = int(payload["epoch"])
         self.batch_idx = int(payload.get("batch_idx", 0))
         return True
@@ -269,9 +362,9 @@ class Trainer:
                 raise FileNotFoundError(missing_checkpoint_message(path))
             sd = {**payload["params"], **payload.get("batch_stats", {})}
 
-        live = self.model.state_dict()
-        host_params = {k: v.detach().cpu() for k, v in live.items() if k in self.state.params}
-        host_rest = {k: v.detach().cpu() for k, v in live.items() if k not in self.state.params}
+        live = gather_full(self.model, self.model.state_dict(), main_only=False)
+        host_params = {k: v for k, v in live.items() if k in self.state.params}
+        host_rest = {k: v for k, v in live.items() if k not in self.state.params}
         params, rep_p = merge_trees(host_params, {k: v for k, v in sd.items() if k in host_params})
         rest, rep_s = merge_trees(host_rest, {k: v for k, v in sd.items() if k not in host_params})
         problems = rep_p["mismatched"] + rep_s["mismatched"] + rep_p["extra"] + rep_s["extra"]
@@ -280,8 +373,9 @@ class Trainer:
             if strict:
                 raise ValueError(msg + ": " + "; ".join(problems[:10]))
             print(f"[trainer] WARNING {msg} (first: {problems[:5]})")
-        # Copies into the live tensors, which the train state holds.
-        self.model.load_state_dict({**params, **rest}, strict=True)
+        # Copies into the live tensors (each rank its shards), which the
+        # train state holds.
+        load_full_state_dict(self.model, {**params, **rest})
         print(
             f"[trainer] loaded pretrained {path}: {rep_p['matched']} param "
             f"leaves (+{rep_s['matched']} buffers)"
@@ -294,10 +388,16 @@ class Trainer:
         parameters and moments in place safely; used by mid-epoch periodic
         saves."""
         with self._span("save"):
-            self.ckpt.save(self.state.step, self._payload(batch_idx), metric=metric, block=block)
-            if self.ckpt_ema is not None:
+            # Under FSDP/TP every rank takes part in the gather; only rank
+            # 0 writes.
+            payload = self._full(self._payload(batch_idx))
+            ema = self._full(self._weights(self.state.ema_params)) if self.ckpt_ema is not None else None
+            if not self.is_main:
+                return
+            self.ckpt.save(self.state.step, payload, metric=metric, block=block)
+            if ema is not None:
                 # weights-only flavor
-                self.ckpt_ema.save(self.state.step, self._weights(self.state.ema_params), block=block)
+                self.ckpt_ema.save(self.state.step, ema, block=block)
 
     # -- train loop ----------------------------------------------------------
     def _step(self, batch):
@@ -307,6 +407,30 @@ class Trainer:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _rows(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This data rank's rows of a global batch (of each microbatch,
+        under grad_accum); the batch as it is without a mesh."""
+        if self.data_ranks == 1:
+            return batch
+        axis = 1 if self.accum > 1 else 0
+        out = {}
+        for key, v in batch.items():
+            v = np.asarray(v)
+            n = v.shape[axis]
+            if n % self.data_ranks:
+                raise ValueError(f"batch of {n} does not split over the {self.data_ranks} data ranks")
+            rows = slice(self.data_index * (n // self.data_ranks), (self.data_index + 1) * (n // self.data_ranks))
+            out[key] = v[:, rows] if axis else v[rows]
+        return out
+
+    def _agree(self, flag: bool) -> bool:
+        """Whether any rank raised `flag` (collective over the host group)."""
+        if self._flag_group is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._flag_group)
+        return bool(t.item())
 
     def _stop_profile(self):
         prof = self._profile
@@ -340,6 +464,8 @@ class Trainer:
             # (B, ...) -> (K, B/K, ...) on the host, for train_step_accum
             k = self.accum
             it = ({key: np.asarray(v).reshape(k, -1, *np.shape(v)[1:]) for key, v in b.items()} for b in it)
+        if self.data_ranks > 1 and not self.local_batches:
+            it = (self._rows(b) for b in it)
         # Keep 2 batches in flight on the device: host batch assembly
         # overlaps device compute (replaces DataLoader prefetch_factor,
         # trainer.py:143).
@@ -373,7 +499,8 @@ class Trainer:
                 # async disk write: training resumes after the host snapshot
                 self.save(batch_idx=i + 1, block=False)
                 saved_this_step = True
-            if self._preempted:
+            if self._agree(self._preempted):
+                self._preempted = True
                 if saved_this_step:
                     # the periodic save above already wrote this exact
                     # step: just drain its async write before exiting
@@ -396,9 +523,17 @@ class Trainer:
     def make_validate_fn(self, val_loader_factory, gendered_smpl=None):
         """Validation hook for fit(): runs the eval pipeline over a loader
         (reference trainer.validate, trainer.py:753-849). The model runs in
-        eval mode for it and returns to train mode after."""
+        eval mode for it and returns to train mode after.
+
+        On a data mesh (model axis 1) the validation is data-parallel: each
+        rank scores its rows of every batch (`run_evaluation(mesh=)`).
+        Under TP every rank scores every row with its shards, as whmr_tpu
+        evaluates under the parameters' own shardings (trainer.py:494-531).
+        Every rank must be handed the same validation batches."""
         from whmr_tpu_torch.inference.eval_cli import device_eval_batch
         from whmr_tpu_torch.inference.evaluate import run_evaluation
+
+        eval_mesh = self.mesh if axis_size(self.mesh, "model") == 1 and self.data_ranks > 1 else None
 
         def validate(state):
             def batches():
@@ -419,7 +554,7 @@ class Trainer:
 
             return run_evaluation(
                 self.cfg, self.model, self.consts, batches(),
-                log_every=0, gendered_smpl=gendered_smpl, regressor=self.regressor,
+                log_every=0, gendered_smpl=gendered_smpl, regressor=self.regressor, mesh=eval_mesh,
             )
 
         return validate
