@@ -7,16 +7,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. Build: compiles every CUDA kernel from the sources in this checkout into
    build/, one nvcc for each source, all started together; prints ptxas's
    registers and spill bytes for each kernel instantiation, and fails on a
-   spill in the tensor-core ("mma") variant of K1 and K3 or in any of K2's
-   kernels.
+   spill in the tensor-core ("mma") variant of K1 and K3 (bf16, and fp32 in
+   3xTF32) or in any of K2's kernels.
 3. Kernels: holds each kernel against its plain PyTorch version on the
    card. K1 (attention) and K3 (fused_attention, the same function in K3's
    launch shape) at the forward's shapes and the serving batch (B=8),
-   ViT-H's head (D = 80), the
-   tensor-core edge N = 256, N = 300 and D = 20 (bf16 on CUDA cores) and a
-   ragged shape, in bf16 and fp32, at one bf16 ulp; checks that every bf16
-   launch at N <= 256 and D % 8 == 0 took the tensor-core variant and no
-   other did, and that K3's bf16 output equals K1's bit for bit. K2
+   whmr-eval's (B=32), ViT-H's head (D = 80), the tensor-core edges (N =
+   256 in bf16; D = 128 at N = 192 and N = 193 in fp32), N = 300 (CUDA
+   cores), D = 20 (bf16 on CUDA cores) and a ragged shape, in bf16 at one
+   bf16 ulp and in fp32 within 2e-5; checks that every launch `_variant`
+   sends to tensor cores (bf16 at N <= 256 and D % 8 == 0; fp32 at N <= 192
+   and D % 4 == 0) took them and no other did, and that K3's
+   output equals K1's bit for bit in bf16 and wherever fp32 ran on tensor
+   cores. K2
    (rasterizer) at the train step's render (B=64 posed bodies with their
    least-squares GT cameras, the 13,776-face topology, the 128x96 window at
    origin (16, 0)), on a ragged case (ties
@@ -44,7 +47,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. Times (CUDA events / synchronized host clock, after warm-up): each kernel
    beside its bound, its plain version and the PyTorch library call for the
    same function (none for K2), K1 and K3 also in their CUDA-core variant
-   at the same bf16 shape, K2 also with its wrapper, its face tables and under
+   at the same shape, in bf16 at B=16 and 48 and in fp32 at B=32 and 48
+   (fp32's bound counts three TF32 products, the CUDA-core figure beside
+   it), K2 also with its wrapper, its face tables and under
    the largest GT camera; forward crops/s at B=48 with "pallas" and
    with "einsum"; train step ms and crops/s at B=64; peak memory.
 7. Trainer path: `Trainer.fit` at the same width, 2 epochs x 3 steps of
@@ -74,8 +79,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checkpoint is on disk. `whmr-eval` then runs three times on that
    checkpoint, fp32 with --misc vit.attn_impl pallas, at B=32: the metric
    protocol over the 192 crops, --eval_parts and --coco_ap over the 64;
-   each run launches K1 12 times a forward batch, none on tensor cores,
-   and never K2; every printed metric is finite and in its range, and the
+   each run launches K1 12 times a forward batch, all on tensor cores
+   (fp32, 3xTF32), and never K2; every printed metric is finite and in its range, and the
    metric protocol's PVE/MPJPE/PA-MPJPE equal run_evaluation's on the same
    model and batches within 1e-4 relative. Times: whmr-train's ms a step
    beside the bare step and the fit step, the loader's host ms a batch,
@@ -199,6 +204,10 @@ HBM_BYTES_PER_S = 3.35e12
 # top SM clock (1.98 GHz); at a lower clock the hold only lasts longer.
 SLEEP_CYCLES_PER_S = 1.98e9
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The tensor cores' TF32 peak: fp32 K1 and K3 take each product as three
+# TF32 products (3xTF32, csrc/attention.cu).
+PEAK_TF32_OPS_PER_S = 495e12
+TF32_PRODUCTS = 3
 KERNELS = ("attention", "rasterizer")
 # fp32 operations of K2's coverage-and-depth test of one (pixel, face) pair:
 # three barycentrics at 2 mul + 2 add, three compares, the depth at
@@ -328,13 +337,21 @@ def host_us(fn, iters=200):
     return t / iters * 1e6
 
 
-def attention_bound_ms(shape, dtype):
+def attention_bound_ms(shape, dtype, cuda_cores=False):
     """Least time for K1's work: q, k, v read once and o written once, against
-    4*B*H*N*N*D operations (two products) at the peak for `dtype`."""
+    4*B*H*N*N*D operations (two products) at the peak for `dtype`. fp32 runs
+    each product as three TF32 products at the TF32 peak; `cuda_cores`
+    counts one fp32 product at the CUDA-core peak instead (the bound of the
+    CUDA-core design, kept beside the new one so that its readings stay
+    comparable)."""
     b, h, n, d = shape
     esize = torch.finfo(dtype).bits // 8
     t_bytes = 4 * b * h * n * d * esize / HBM_BYTES_PER_S
-    t_ops = 4 * b * h * n * n * d / PEAK_OPS_PER_S[dtype]
+    ops = 4 * b * h * n * n * d
+    if dtype == torch.float32 and not cuda_cores:
+        t_ops = TF32_PRODUCTS * ops / PEAK_TF32_OPS_PER_S
+    else:
+        t_ops = ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -394,9 +411,11 @@ def k2_work_line(counts):
             f"{counts['chunk_cull_pairs']:.4g}")
 
 
-# K1's and K3's tensor-core kernels, one instantiation each for 64, 128,
-# 192 and 256 padded keys.
-MMA_INSTANTIATIONS = 8
+# K1's and K3's tensor-core kernels: in bf16 one instantiation each for 64,
+# 128, 192 and 256 padded keys; in fp32 (3xTF32, "_f32_" in the name) one
+# each for 64, 128 and 192 by wgmma (D <= 64) and by mma.sync (D > 64).
+MMA_INSTANTIATIONS = 8 + 12
+F32_MMA_INSTANTIATIONS = 12
 
 
 def phase_build():
@@ -406,7 +425,7 @@ def phase_build():
     t0 = time.perf_counter()
     texts = cuda_build.build_all(KERNELS, force=True)
     log(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s (in parallel)")
-    mma = 0
+    mma = f32 = 0
     for name, text in texts.items():
         for fn, r in cuda_build.ptxas_report(text).items():
             spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
@@ -414,10 +433,12 @@ def phase_build():
                 f"{r.get('spill_loads')} bytes spill loads")
             if "mma_kernel" in fn:
                 mma += 1
+                f32 += "_f32_" in fn
                 check(spills == 0, f"the tensor-core kernel {fn} spills {spills} bytes")
             if "raster_" in fn:
                 check(spills == 0, f"K2's {fn} spills {spills} bytes")
     check(mma == MMA_INSTANTIATIONS, f"ptxas reported {mma} tensor-core kernels, want {MMA_INSTANTIATIONS}")
+    check(f32 == F32_MMA_INSTANTIATIONS, f"ptxas reported {f32} fp32 tensor-core kernels, want {F32_MMA_INSTANTIATIONS}")
     raster = cuda_build.ptxas_report(texts["rasterizer"])
     check(len(raster) == RASTER_INSTANTIATIONS, f"ptxas reported {len(raster)} K2 kernels, want {RASTER_INSTANTIATIONS}")
     return raster
@@ -427,14 +448,16 @@ def phase_kernels():
     """K1 and K3 against their plain version; returns {(shape, dtype): max_abs_err}."""
     errs = {}
     g = torch.Generator(device="cuda").manual_seed(0)
-    # The forward's heads at B=8 (the serving batch), 16 and 48, ViT-H's
-    # (D = 80), a ragged one and D = 20 (no multiple of 8: CUDA cores in
-    # bf16); in bf16 also the tensor-core edge N = 256 and N = 300, above it.
-    # (fp32 at (256, 128) needs more shared memory than a block has.)
-    shapes = [(8, 12, 192, 64), (16, 12, 192, 64), (48, 12, 192, 64), (16, 16, 192, 80), (3, 2, 63, 32),
-              (3, 2, 50, 20)]
+    # The forward's heads at B=8 (the serving batch), 16 and 48, whmr-eval's
+    # B=32, ViT-H's (D = 80), a ragged one and D = 20 (no multiple of 8: CUDA
+    # cores in bf16, tensor cores in fp32); N = 300, above the tensor-core
+    # edge; and the tensor-core edges, N = 256 with D = 128 in bf16 and, in
+    # fp32, D = 128 at N = 192 and N = 193, past it.
+    shapes = [(8, 12, 192, 64), (16, 12, 192, 64), (32, 12, 192, 64), (48, 12, 192, 64), (16, 16, 192, 80),
+              (3, 2, 63, 32), (3, 2, 50, 20), (2, 2, 300, 64)]
+    edges = {torch.bfloat16: [(2, 4, 256, 128)], torch.float32: [(2, 4, 192, 128), (2, 3, 193, 64)]}
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in shapes + ([(2, 4, 256, 128), (2, 2, 300, 64)] if dtype == torch.bfloat16 else []):
+        for shape in shapes + edges[dtype]:
             q, k, v = (torch.randn(*shape, device="cuda", generator=g, dtype=dtype) for _ in range(3))
             reset_launches()
             got = k1.attention(q, k, v)
@@ -459,10 +482,10 @@ def phase_kernels():
             n = read_launches()
             check((n["attention"], n["attention.mma"], n["fused_attention"], n["fused_attention.mma"])
                   == (1, mma, 1, mma), f"{shape} {dtype}: launches {n}, want {mma} on tensor cores each")
-            if dtype == torch.bfloat16:
-                check(torch.equal(got3, got), f"K3's bf16 output differs from K1's at {shape}")
-    log("K3 equals K1 bit for bit at every bf16 shape; bf16 at N <= 256 and D % 8 == 0 ran on tensor cores, "
-        "the rest did not")
+            if dtype == torch.bfloat16 or mma:
+                check(torch.equal(got3, got), f"K3's output differs from K1's at {shape} {dtype}")
+    log("K3 equals K1 bit for bit at every bf16 shape and every fp32 shape on tensor cores; bf16 at N <= 256 and "
+        "D % 8 == 0 and fp32 at N <= 192 and D % 4 == 0 ran on tensor cores, the rest did not")
     for name, fn in (("K1", k1.attention), ("K3", k1.fused_attention)):
         q = torch.randn(1, 2, 16, 32, device="cuda", requires_grad=True)
         try:
@@ -587,6 +610,51 @@ def phase_times(cfg, model, consts, inputs, launches, errs):
                     "library_ms": library_ms,
                     "share_of_bound": bound_ms / t,
                 })
+
+    # fp32 at whmr-eval's batch (B=32) and the forward's (48): the 3xTF32
+    # tensor-core kernels beside the CUDA-core variant, the plain version and
+    # SDPA in fp32. The bound counts three TF32 products; the CUDA-core
+    # figure (one fp32 product at 67 TFLOP/s, the CUDA-core design's bound)
+    # beside it.
+    fp32 = {"attention": [], "fused_attention": []}
+    for b in (32, 48):
+        shape = (b, 12, 192, 64)
+        q, k, v = (torch.randn(*shape, device="cuda", generator=g) for _ in range(3))
+        check(k1._variant(shape, torch.float32) == "mma", f"fp32 K1 at {shape} would not take the tensor cores")
+        ms = cuda_ms(lambda: k1.attention(q, k, v), 200)
+        ms3 = cuda_ms(lambda: k1.fused_attention(q, k, v), 200)
+        rows_ms = cuda_ms(lambda: k1._launch(q, k, v, False, "rows"), 20)
+        rows3_ms = cuda_ms(lambda: k1._launch(q, k, v, True, "rows"), 10)
+        plain_ms = cuda_ms(lambda: k1.attention_reference(q, k, v), 50)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 200)
+        bound_ms, bound_by = attention_bound_ms(shape, torch.float32)
+        cc_ms, cc_by = attention_bound_ms(shape, torch.float32, cuda_cores=True)
+        for name, label, t, rows_t in (("attention", "K1", ms, rows_ms), ("fused_attention", "K3", ms3, rows3_ms)):
+            err = errs[(shape, torch.float32) if name == "attention" else ("K3", shape, torch.float32)]
+            log(f"{label} B={b} fp32 (3xTF32): {t * 1e3:.2f} us ({bound_ms / t:.1%} of the bound), CUDA-core variant "
+                f"{rows_t * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}; one fp32 product on CUDA cores: "
+                f"{cc_ms * 1e3:.2f} us, {cc_by}); plain {plain_ms * 1e3:.1f} us; scaled_dot_product_attention "
+                f"{library_ms * 1e3:.2f} us; max_abs_err {err:.3g}")
+            fp32[name].append({"shape": list(shape), "ms": t, "rows_ms": rows_t, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by, "cuda_core_bound_ms": cc_ms,
+                               "library_ms": library_ms, "max_abs_err": err})
+    # ViT-H's head (D = 80) in fp32: the mma.sync routine, beside the
+    # CUDA-core variant it replaces there.
+    shape = (16, 16, 192, 80)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=g) for _ in range(3))
+    for label, per_batch in (("K1", False), ("K3", True)):
+        t = cuda_ms(lambda: k1._launch(q, k, v, per_batch), 50)
+        rows_t = cuda_ms(lambda: k1._launch(q, k, v, per_batch, "rows"), 10)
+        log(f"{label} {shape} fp32 (3xTF32 by mma.sync, D > 64): {t * 1e3:.2f} us, CUDA-core variant {rows_t * 1e3:.1f} us")
+    # Which kernel SDPA runs in fp32 (the profiler's names for one call).
+    q, k, v = (torch.randn(32, 12, 192, 64, device="cuda", generator=g) for _ in range(3))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if not e.key.startswith(("cuda", "Activity"))]
+    log(f"scaled_dot_product_attention in fp32 at (32, 12, 192, 64) runs: {names}")
+    for entry in kernels:
+        entry["fp32"] = fp32[entry["name"]]
 
     einsum_model = _twin(cfg, model, torch.bfloat16, "einsum")
     b48 = _inputs(cfg, 48, False, "cuda")
@@ -1155,7 +1223,7 @@ def phase_cli(consts, train_ms, fit_ms, root):
     log(f"cli: the loader alone: {(time.perf_counter() - t0) / n_batches * 1e3:.1f} ms a batch of "
         f"{CLI_TRAIN_BATCH} (PNG decode, augmentation, crop; 8 threads; {n_batches} batches)")
 
-    # whmr-eval: three protocols on the checkpoint, fp32, K1 in its CUDA-core variant.
+    # whmr-eval: three protocols on the checkpoint, fp32, K1 on tensor cores (3xTF32).
     common = ["--checkpoint", str(root / "train" / "checkpoints"), "--img_dir", paths["img_dir"],
               "--batch_size", str(CLI_EVAL_BATCH), "--device", "cuda", "--misc", "vit.attn_impl", "pallas"]
     runs = {
@@ -1182,7 +1250,7 @@ def phase_cli(consts, train_ms, fit_ms, root):
             f"({loop:.2f} s; {main_s:.1f} s in main with the model build and the checkpoint read); launches {n}")
         check(n["attention"] == 12 * batches, f"whmr-eval {name}: K1 launched {n['attention']} times, want 12 a "
               f"forward batch ({batches} batches)")
-        check(n["attention.mma"] == 0, f"whmr-eval {name}: a fp32 K1 launch took the tensor-core variant")
+        check(n["attention.mma"] == n["attention"], f"whmr-eval {name}: a fp32 K1 launch missed the tensor cores")
         check(n["rasterizer"] == 0 and n["fused_attention"] == 0, f"whmr-eval {name}: K2 or K3 launched")
     m, p, c = results["metric"], results["parts"], results["coco_ap"]
     check(m["count"] == CLI_IMAGES and all(np.isfinite(m[k]) and 0 <= m[k] < 1e4 for k in ("pve", "mpjpe", "pa_mpjpe")),
@@ -1206,10 +1274,33 @@ def phase_cli(consts, train_ms, fit_ms, root):
             b["valid"] = torch.from_numpy(hb["has_smpl"]).cuda()
             yield b
 
-    direct = evaluate_module.run_evaluation(cfg, model, consts_e, batches(), log_every=0)
+    held = list(batches())
+    direct = evaluate_module.run_evaluation(cfg, model, consts_e, held, log_every=0)
     for k in ("pve", "mpjpe", "pa_mpjpe"):
         rel = abs(m[k] - direct[k]) / abs(direct[k])
         check(rel <= CLI_METRIC_RTOL, f"whmr-eval {k} {m[k]} vs run_evaluation's {direct[k]}: relative {rel}")
+
+    # The protocol's loop on those batches held on the card (no decode),
+    # with fp32 K1 on tensor cores and on its CUDA-core variant, in turns:
+    # what the tensor-core kernel moves end to end.
+    choose = k1._variant
+
+    def cuda_cores(shape, dtype):
+        return "rows" if dtype == torch.float32 else choose(shape, dtype)
+
+    loop = {"mma": [], "rows": []}
+    for name in ("rows", "mma", "mma", "rows"):
+        with mock.patch.object(k1, "_variant", cuda_cores) if name == "rows" else contextlib.nullcontext():
+            evaluate_module.run_evaluation(cfg, model, consts_e, held[:1], log_every=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_module.run_evaluation(cfg, model, consts_e, held, log_every=0)
+            torch.cuda.synchronize()
+            loop[name].append(time.perf_counter() - t0)
+    log("cli: run_evaluation over the metric protocol's 192 crops held on the card, fp32 K1 in turns: "
+        + "; ".join(f"{'tensor cores' if k == 'mma' else 'CUDA-core variant'} "
+                    f"{CLI_IMAGES / np.mean(v):.1f} crops/s ({[round(x * 1e3, 1) for x in v]} ms)"
+                    for k, v in loop.items()))
     log(f"cli: whmr-eval metric protocol PVE {m['pve']:.3f}, MPJPE {m['mpjpe']:.3f}, PA-MPJPE {m['pa_mpjpe']:.3f} mm, "
         f"equal to run_evaluation's on the same model and batches within {CLI_METRIC_RTOL} relative; parts "
         f"mask accuracy {p['mask_accuracy']:.4f}, F1 {p['mask_f1']:.4f}, parts accuracy {p['parts_accuracy']:.4f}; "
@@ -1225,19 +1316,22 @@ def phase_cli(consts, train_ms, fit_ms, root):
     log(f"cli: parts render B={CLI_EVAL_BATCH} at {res[0]}x{res[1]} through ops/rasterizer.py::rasterize: "
         f"{render_ms:.2f} ms a batch (host clock, synchronised: the chunk windows are read back once a call)")
 
-    # K1 as whmr-eval runs it: fp32 at the eval batch, CUDA-core variant.
+    # K1 as whmr-eval runs it: fp32 at the eval batch, on tensor cores (3xTF32).
     shape = (CLI_EVAL_BATCH, 12, 192, 64)
     g = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn(*shape, device="cuda", generator=g) for _ in range(3))
-    check(k1._variant(shape, torch.float32) != "mma", "fp32 K1 would take the tensor-core variant")
+    variant = k1._variant(shape, torch.float32)
+    check(variant == "mma", f"fp32 K1 at {shape} would take the {variant} variant, not the tensor cores")
     err = (k1.attention(q, k, v) - k1.attention_reference(q, k, v)).abs().max().item()
     check(err <= 2e-5, f"fp32 K1 at {shape} disagrees with its plain version by {err}")
     ms = cuda_ms(lambda: k1.attention(q, k, v), 20)
     plain_ms = cuda_ms(lambda: k1.attention_reference(q, k, v), 20)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
     bound_ms, bound_by = attention_bound_ms(shape, torch.float32)
-    log(f"cli: K1 {shape} fp32 (whmr-eval's launches, CUDA-core variant): {ms * 1e3:.2f} us ({bound_ms / ms:.1%} of "
-        f"the bound), max_abs_err {err:.3g}; bound {bound_ms * 1e3:.2f} us ({bound_by}); plain {plain_ms * 1e3:.1f} us; "
+    cc_ms, cc_by = attention_bound_ms(shape, torch.float32, cuda_cores=True)
+    log(f"cli: K1 {shape} fp32 (whmr-eval's launches, {variant} variant, 3xTF32): {ms * 1e3:.2f} us "
+        f"({bound_ms / ms:.1%} of the bound), max_abs_err {err:.3g}; bound {bound_ms * 1e3:.2f} us ({bound_by}; one "
+        f"fp32 product on CUDA cores: {cc_ms * 1e3:.2f} us, {cc_by}); plain {plain_ms * 1e3:.1f} us; "
         f"scaled_dot_product_attention {library_ms * 1e3:.2f} us")
     del model
     torch.cuda.empty_cache()
@@ -1505,9 +1599,9 @@ def phase_parallel(root, paths, cli_metric, train_ms):
     (rep,) = runs["eval-dp1"]
     m, n = rep["result"], rep["launches"]
     batches = -(-CLI_IMAGES // CLI_EVAL_BATCH)
-    check(n["attention"] == 12 * batches and n["attention.mma"] == 0,
+    check(n["attention"] == n["attention.mma"] == 12 * batches,
           f"whmr-eval --data_parallel 1: K1 launched {n['attention']} times ({n['attention.mma']} on tensor cores), "
-          f"want 12 a forward batch ({batches} batches) on CUDA cores")
+          f"want 12 a forward batch ({batches} batches), all on tensor cores")
     check(n["rasterizer"] == 0 and n["fused_attention"] == 0, "whmr-eval --data_parallel 1: K2 or K3 launched")
     rel = max(abs(m[k] - cli_metric[k]) / abs(cli_metric[k]) for k in ("pve", "mpjpe", "pa_mpjpe"))
     check(m["count"] == CLI_IMAGES and rel <= CLI_METRIC_RTOL,
@@ -2002,7 +2096,7 @@ def main():
     k3 = next(k for k in kernels if k["name"] == "fused_attention")
     k3["launches"] += train_launches["fused_attention"] + fit_launches["fused_attention"]
     k3["mma_launches"] += train_launches["fused_attention.mma"] + fit_launches["fused_attention.mma"]
-    # The CLI path's launches (whmr-eval's K1 on CUDA cores, fp32, and
+    # The CLI path's launches (whmr-eval's K1 on tensor cores, fp32, and
     # whmr-train's K2) and the serving path's (K1 on tensor cores in every
     # export check, server, eval, demo and video run), each read over its
     # run; K3's, checked to be 0.

@@ -141,14 +141,33 @@ def test_unported_impls_raise(impl):
     ((2, 3, 200, 128), torch.bfloat16, "mma", (64 + 2 * 256) * 256 + 1024, 3 * 256 * 256 + 1024),
     ((1, 1, 1, 8), torch.bfloat16, "mma", (64 + 2 * 64) * 128 + 1024, 2 * 3 * 64 * 128 + 1024),
     ((3, 2, 63, 32), torch.bfloat16, "mma", (64 + 2 * 64) * 128 + 1024, 2 * 3 * 64 * 128 + 1024),
+    # fp32 at N <= 192 with D % 4 == 0: tensor cores (3xTF32). D <= 64
+    # (wgmma): K and V^T of a head split into two TF32 parts each,
+    # padded_keys(N) x 64 floats a part, plus 1024 bytes of alignment, for K1
+    # and K3. 64 < D <= 128 (mma.sync): K and V, padded_keys(N) rows of 132
+    # floats; K3 twice when two fit. The forward's and whmr-eval's heads,
+    # the edge D = 128 at N = 192, N = 1 and D = 4, D = 20, and D = 68.
+    ((48, 12, 192, 64), torch.float32, "mma", 4 * 192 * 64 * 4 + 1024, 4 * 192 * 64 * 4 + 1024),
+    ((32, 12, 192, 64), torch.float32, "mma", 4 * 192 * 64 * 4 + 1024, 4 * 192 * 64 * 4 + 1024),
+    ((1, 1, 1, 4), torch.float32, "mma", 4 * 64 * 64 * 4 + 1024, 4 * 64 * 64 * 4 + 1024),
+    ((3, 2, 50, 20), torch.float32, "mma", 4 * 64 * 64 * 4 + 1024, 4 * 64 * 64 * 4 + 1024),
+    ((2, 4, 192, 128), torch.float32, "mma", 2 * 192 * 132 * 4, 2 * 192 * 132 * 4),
+    ((2, 16, 192, 80), torch.float32, "mma", 2 * 192 * 132 * 4, 2 * 192 * 132 * 4),
+    ((2, 3, 100, 68), torch.float32, "mma", 2 * 128 * 132 * 4, 2 * 128 * 132 * 4),
+    ((1, 2, 64, 128), torch.float32, "mma", 2 * 64 * 132 * 4, 2 * 2 * 64 * 132 * 4),
     # bf16 above N = 256 or with D % 8 != 0 (TMA reads 16-byte rows), and
-    # fp32: CUDA cores. K (rows padded to an odd
-    # number of words) and V, rounded up to 16 B, then an fp32 score and
+    # fp32 above N = 192 or with D % 4 != 0: CUDA cores. K (rows padded to an
+    # odd number of words) and V, rounded up to 16 B, then an fp32 score and
     # query row a warp.
     ((1, 2, 257, 64), torch.bfloat16, "rows", 66832 + 8 * 321 * 4, 66832 + 16 * 321 * 4),
     ((2, 3, 50, 20), torch.bfloat16, "rows", 4208 + 8 * 70 * 4, 4208 + 16 * 70 * 4),
-    ((48, 12, 192, 64), torch.float32, "rows", 192 * (65 + 64) * 4 + 8 * 256 * 4,
-     192 * (65 + 64) * 4 + 16 * 256 * 4),
+    ((1, 2, 257, 64), torch.float32, "rows", 132624 + 8 * 321 * 4, 132624 + 16 * 321 * 4),
+    ((1, 1, 193, 64), torch.float32, "rows", 99600 + 8 * 257 * 4, 99600 + 16 * 257 * 4),
+    ((2, 3, 64, 18), torch.float32, "rows", 64 * (19 + 18) * 4 + 8 * 82 * 4, 64 * (19 + 18) * 4 + 16 * 82 * 4),
+    ((2, 4, 256, 96), torch.float32, "rows", 256 * (97 + 96) * 4 + 8 * 352 * 4,
+     256 * (97 + 96) * 4 + 16 * 352 * 4),
+    ((2, 4, 200, 128), torch.float32, "rows", 200 * (129 + 128) * 4 + 8 * 328 * 4,
+     200 * (129 + 128) * 4 + 16 * 328 * 4),
 ])
 def test_variant_choice_and_smem(shape, dtype, variant, k1_smem, k3_smem):
     """The wrappers pick the kernel variant from dtype and shape alone."""
@@ -156,6 +175,76 @@ def test_variant_choice_and_smem(shape, dtype, variant, k1_smem, k3_smem):
     assert tattn._smem_bytes(shape, dtype, False) == k1_smem
     assert tattn._smem_bytes(shape, dtype, True) == k3_smem
     assert max(k1_smem, k3_smem) <= tattn._MAX_SMEM
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """fp32 to the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as `cvt.rna.tf32.f32` rounds: add half of the 13 dropped bits to
+    the magnitude, then drop them."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_tf32(a: np.ndarray, b: np.ndarray, products: int) -> np.ndarray:
+    """a @ b as the fp32 tensor-core kernels compute it, per k8 step (one
+    mma.sync.m16n8k8) into an fp32 accumulator. products=3 is 3xTF32: each
+    operand x split into big = RNA(x) and small = RNA(x - big), and a_small
+    b_big + a_big b_small + a_big b_big, in that order; products=1 is one
+    TF32 product, a_big b_big. The products of TF32 parts are exact in
+    fp64; each mma's sum is rounded once into the accumulator. This models
+    the operands' rounding only, not the tensor core's adder (whose
+    alignment and rounding inside an mma are the hardware's)."""
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)  # x - big is exact in fp32
+    terms = [(a_small, b_big), (a_big, b_small), (a_big, b_big)] if products == 3 else [(a_big, b_big)]
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            step = x[..., k0:k0 + 8].astype(np.float64) @ y[..., k0:k0 + 8, :].astype(np.float64)
+            acc = (acc.astype(np.float64) + step).astype(np.float32)
+    return acc
+
+
+def _attention_tf32(q, k, v, products):
+    """K1's fp32 tensor-core arithmetic in numpy: q scaled in fp32 before
+    the split, S and P.V through `_matmul_tf32`, the max-subtracted softmax
+    and its division in fp32."""
+    qs = q * np.float32(tattn._scale(q.shape[-1]))
+    s = _matmul_tf32(qs, np.swapaxes(k, -1, -2), products)
+    e = np.exp(s - s.max(axis=-1, keepdims=True))
+    p = e / e.sum(axis=-1, keepdims=True, dtype=np.float32)
+    return _matmul_tf32(p, v, products)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 192, 64), (1, 2, 192, 80), (3, 2, 63, 32), (3, 2, 50, 20),
+                                   (1, 1, 129, 68), (1, 1, 192, 128)])
+def test_3xtf32_arithmetic_matches_pallas_fp32(shape):
+    """The fp32 tensor-core variant's arithmetic (3xTF32, modelled in numpy
+    by `_matmul_tf32`) holds whmr_tpu's `fused_attention_heads(interpret=
+    True)` within the fp32 contract of 2e-5, at the fp32 shapes chip_smoke.py
+    runs the kernels at (the forward's and ViT-H's heads, a ragged one, D =
+    20) and the range's edges, with a smaller batch; one TF32 product
+    would not."""
+    q, k, v = _qkv(shape, 3)
+    want = n(fused_attention_heads(*map(jnp.asarray, (q, k, v)), interpret=True))
+    got = _attention_tf32(q, k, v, products=3)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    assert tattn._variant(shape, torch.float32) == "mma"
+    if shape[-1] >= 32:
+        assert np.abs(_attention_tf32(q, k, v, products=1) - want).max() > 2e-5
+
+
+def test_tf32_rounding_is_rna():
+    """`_tf32_rna` rounds to 10 mantissa bits, to nearest, ties away from
+    zero, and the split's small part holds what big drops."""
+    ulp = 2.0 ** -10
+    x = np.array([1 + ulp / 2, 1 + ulp / 2 - 2.0 ** -23, -(1 + ulp / 2), 1 + 3 * ulp / 2, 3.0], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), np.array([1 + ulp, 1, -(1 + ulp), 1 + 2 * ulp, 3.0], np.float32))
+    y = np.random.RandomState(0).randn(1000).astype(np.float32)
+    big = _tf32_rna(y)
+    small = _tf32_rna(y - big)
+    assert np.all(np.abs(y - big) <= np.abs(big) * ulp / 2)
+    assert np.all(np.abs((big.astype(np.float64) + small) - y) <= np.abs(y) * 2.0 ** -21)
 
 
 def _rn32(v: Fraction) -> Fraction:

@@ -28,7 +28,9 @@ def cuda_device():
 # The forward's head (ViT-B), ViT-H's head (D = 80, not a power of 4, so
 # the fp32 scale is not exact in bf16), the tensor-core edge N = 256,
 # ragged shapes, and D = 20 (no multiple of 8) and N = 300, where bf16
-# takes the CUDA-core variant.
+# takes the CUDA-core variant. fp32 takes the tensor cores (3xTF32) at N <=
+# 192, and the CUDA-core variant at (2, 4, 256, 96), (2, 3, 200, 128) and
+# N = 300.
 ATTENTION_SHAPES = [
     (2, 12, 192, 64), (2, 16, 192, 80), (2, 4, 256, 96), (3, 2, 63, 32), (1, 1, 1, 128),
     (2, 3, 200, 128), (2, 3, 50, 20), (1, 2, 300, 64),
@@ -97,6 +99,30 @@ def test_fused_attention_equals_attention_bf16(cuda_device, shape):
     assert torch.equal(tattn.fused_attention(q, k, v), tattn.attention(q, k, v))
 
 
+# fp32 shapes on tensor cores: the forward's and whmr-eval's heads, ViT-H's,
+# the edge D = 128 at N = 192, ragged N and D = 4, 20 and 68 (wgmma at D <=
+# 64, mma.sync above).
+F32_MMA_SHAPES = [(2, 12, 192, 64), (2, 16, 192, 80), (2, 3, 192, 128), (3, 2, 63, 32), (2, 3, 129, 4),
+                  (3, 2, 50, 20), (1, 1, 1, 128), (2, 3, 100, 68)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_MMA_SHAPES)
+def test_fused_attention_equals_attention_fp32(cuda_device, shape):
+    """In fp32 on tensor cores K3 runs K1's warp routine (3xTF32) on the same
+    staged values, so its output equals K1's bit for bit; both are within
+    2e-5 of the plain version and counted as tensor-core launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(*shape, device=cuda_device, generator=g) for _ in range(3))
+    assert tattn._variant(shape, torch.float32) == "mma"
+    before = (tattn.attention.mma_launches, tattn.fused_attention.mma_launches)
+    a, b = tattn.attention(q, k, v), tattn.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (tattn.attention.mma_launches, tattn.fused_attention.mma_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(a, b)
+    assert (a - tattn.attention_reference(q, k, v)).abs().max().item() <= 2e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrapper", ["attention", "fused_attention"])
 def test_tensor_core_kernels_take_unaligned_inputs(cuda_device, wrapper):
@@ -125,14 +151,17 @@ def test_tensor_core_kernels_take_unaligned_inputs(cuda_device, wrapper):
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrapper", ["attention", "fused_attention"])
 def test_tensor_core_launches_counted(cuda_device, wrapper):
-    """bf16 at N <= 256 (D % 8 == 0) launches the tensor-core variant
-    (counted in `.mma_launches` and `.launches`); fp32, and bf16 above N =
-    256 or with D % 8 != 0, launch the CUDA-core variant (`.launches`
+    """bf16 at N <= 256 (D % 8 == 0) and fp32 at N <= 192 (D % 4 == 0)
+    launch the tensor-core variant (counted in `.mma_launches` and
+    `.launches`); bf16 above N = 256 or with D % 8 != 0, and fp32 above N =
+    192 or with D % 4 != 0, launch the CUDA-core variant (`.launches`
     only)."""
     fn = getattr(tattn, wrapper)
     cases = [((2, 3, 256, 64), torch.bfloat16, 1), ((2, 3, 1, 64), torch.bfloat16, 1),
-             ((2, 3, 192, 64), torch.float32, 0), ((2, 3, 257, 64), torch.bfloat16, 0),
-             ((2, 3, 64, 20), torch.bfloat16, 0)]
+             ((2, 3, 192, 64), torch.float32, 1), ((2, 3, 192, 128), torch.float32, 1),
+             ((2, 3, 64, 20), torch.float32, 1), ((2, 3, 257, 64), torch.bfloat16, 0),
+             ((2, 3, 64, 20), torch.bfloat16, 0), ((2, 3, 193, 64), torch.float32, 0),
+             ((2, 3, 256, 64), torch.float32, 0), ((2, 3, 64, 18), torch.float32, 0)]
     for shape, dtype, mma in cases:
         x = torch.randn(*shape, device=cuda_device, dtype=dtype)
         before = (fn.launches, fn.mma_launches)
@@ -143,9 +172,10 @@ def test_tensor_core_launches_counted(cuda_device, wrapper):
 
 @pytest.mark.cuda
 def test_smem_figures_match_the_kernel_source(cuda_device):
-    """The wrapper's shared-memory figures are the ones the launch sets."""
+    """The wrapper's shared-memory figures are the ones the launch sets, in
+    both variants and both dtypes."""
     lib = tattn._kernel_lib()
-    for shape in ATTENTION_SHAPES:
+    for shape in ATTENTION_SHAPES + F32_MMA_SHAPES + [(1, 1, 193, 64), (1, 1, 64, 18)]:
         for dtype in (torch.float32, torch.bfloat16):
             for per_batch in (False, True):
                 for variant in {"rows", tattn._variant(shape, dtype)}:
@@ -271,6 +301,20 @@ def test_rasterizer_kernel_ties_on_tile_edges(cuda_device):
         _check_k2(got, want)
         outs.append(got.attrs)
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_attention_tensor_core_kernels_build_without_spills(cuda_device):
+    """ptxas's report of the tensor-core attention kernels: in fp32
+    (3xTF32) K1's and K3's for 64, 128 and 192 padded keys, by wgmma (D <=
+    64) and by mma.sync (64 < D <= 128); in bf16 one per key count up to
+    256. No spill."""
+    text = cuda_build.build_all(["attention"], force=True)["attention"]
+    report = {fn: r for fn, r in cuda_build.ptxas_report(text).items() if "mma_kernel" in fn}
+    f32 = [fn for fn in report if "_f32_" in fn]
+    assert (len(f32), len(report)) == (12, 20), sorted(report)
+    for fn, r in report.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (fn, r)
 
 
 @pytest.mark.cuda

@@ -12,21 +12,24 @@
 // TO THE INPUT DTYPE before P.V, P.V accumulates in fp32, and the output is
 // rounded once.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the ViT-B shape
-// (B=48, H=12, N=192, D=64, bf16) the kernel must move 4 x 48*12*192*64 x 2 B
-// = 56.6 MB (16.9 us) and do 4*B*H*N*N*D = 5.44 GFLOP (5.5 us), so it is
-// bound by bytes. What the design does about it: q, k, v and o cross
-// device memory once (K3), or K and V once per 64 query rows (K1, the
-// re-reads hit L2), copies run on the TMA engine beside the compute, and
-// the N x N scores never leave registers. What holds it above that bound
-// (PERF.md): the softmax's exact expf and division, about 15 CUDA-core
-// instructions a score, which the warps of an SM run in step between
-// their tensor-core products.
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16, 495 TFLOP/s TF32): at
+// the ViT-B shape (B=48, H=12, N=192, D=64, bf16) the kernel must move 4 x
+// 48*12*192*64 x 2 B = 56.6 MB (16.9 us) and do 4*B*H*N*N*D = 5.44 GFLOP
+// (5.5 us), so it is bound by bytes. In fp32 at whmr-eval's (32, 12, 192, 64)
+// it moves 75.5 MB (22.5 us) and does three TF32 products of 3.62 GFLOP each
+// (22.0 us; see "mma" in fp32 below): bound by bytes, barely. What the
+// designs do about it: q, k, v and o cross device memory once (K3, and K1
+// in fp32 at D <= 64), or K and V once per 64 query rows (K1 otherwise, the
+// re-reads hit L2), copies run asynchronously beside the compute in bf16,
+// and the N x N scores never leave registers. What holds them above that bound (PERF.md): the softmax's
+// exact expf and division, about 15 CUDA-core instructions a score, and in
+// fp32 the operand splits, which the warps of an SM run between their
+// tensor-core products.
 //
 // Two variants of each kernel, chosen by the wrapper (ops/attention.py) by
 // dtype and shape only:
 //
-// * "mma", bf16 with N <= 256 and D % 8 == 0 (every ViT of the repo has
+// * "mma" in bf16, with N <= 256 and D % 8 == 0 (every ViT of the repo has
 //   N = 192 and D = 64 or 80): the
 //   warpgroup routine `attend_tile_mma`, 64 query rows a warpgroup.
 //   - Staging: one thread loads Q, K and V of the head by TMA (tensor maps
@@ -65,9 +68,55 @@
 //   ...; thread 0 loads the next item into a second buffer while the
 //   current item computes (2 x 72 KB at (192, 64); one buffer when two do
 //   not fit, e.g. D > 64 at N > 128).
-// * "rows", fp32 (tensor cores would take fp32 as TF32, outside the 2e-5
-//   contract), and bf16 above N = 256 or with D % 8 != 0: the first design
-//   on CUDA cores. One
+// * "mma" in fp32, with N <= 192 and D % 4 == 0 (16-byte rows): 3xTF32 on
+//   tensor cores. One TF32 product keeps 10 of fp32's 23 mantissa bits,
+//   outside the 2e-5 contract (a numpy model of it misses by 18-40x,
+//   tests/test_torch_attention.py); so each operand x is split into big =
+//   RNA_tf32(x) and small = RNA_tf32(x - big) (`cvt.rna.tf32.f32`: raw fp32
+//   bits would be truncated) and a b is taken as a_small b_big + a_big
+//   b_small + a_big b_big, accumulated in fp32: about 21-22 bits, the one
+//   dropped term a_small b_small below 2^-22 |ab|. q is widened and scaled
+//   in fp32 before its split, as the plain version scales before its
+//   product; the softmax is the bf16 routine's in fp32 (`softmax_f32`:
+//   exact expf, `div_rn`), and P stays fp32 (the plain version's rounding
+//   of P to the input dtype is a no-op there). The bound counts the three
+//   products at the TF32 peak. Two routines, by D:
+//   - D <= 64 (every ViT-B head), `attend_tile_wg`, wgmma, a warpgroup per
+//     64 query rows. wgmma in tf32 reads its shared-memory operands K-major
+//     only and truncates them, so the block first writes K and V^T of the
+//     head, each split into big and small parts (`stage_wg`: float4 loads,
+//     the split, 16-byte stores into the 128-byte swizzle; V transposed, a
+//     warp's stores 32 keys of one row), 192 KB at 192 keys. S = (q
+//     scale) K^T by m64n64k8, q's split A fragments from registers; P.V by
+//     m64n64k8 with P's fragments straight from the score registers: the S
+//     accumulator holds keys 2t and 2t + 1 of each n8 tile where the A
+//     fragment wants keys t and t + 4, and V^T stores each 8-key group in
+//     the order 0, 2, 4, 6, 1, 3, 5, 7 to match. The A registers of a k8
+//     step stay untouched until the wgmma.wait_group that retires it.
+//     K1's launch: grid (H, B), one block of N / 64 (padded) warpgroups a
+//     head, 1 block an SM (at 164 registers a thread); the staging is not
+//     overlapped with compute. K3's: persistent, one block of at most 2
+//     warpgroups an SM taking the 64-row tiles of an item in turn (3 would
+//     spill with the item loop's registers).
+//   - 64 < D <= 128 (ViT-H's 80), `attend_tile_f32`, mma.sync.m16n8k8, a
+//     warp per 16 query rows, each thread loading and splitting its own
+//     fragments (the split K and V^T of 128 columns would not fit a block).
+//     K and V of the head staged in fp32 by cp.async into rows of 132
+//     floats (a B fragment's 8 rows x 4 columns hit 32 banks), zero past N
+//     and D so that the unrolled loops need no run-time guard (a guard
+//     cuts them into blocks the compiler cannot interleave); the same key
+//     permutation feeds P to P.V. K1: a block of 4 warps per (b, h, 64 rows), K and V on two copy
+//     groups so that the scores run while V lands; K3: persistent, 8 warps
+//     taking 16-row tiles, the next item copied into a second buffer when
+//     two fit.
+//   Each kernel pair inlines one routine on the same staged values, so K3's
+//   output equals K1's bit for bit. What holds them above the bound
+//   (PERF.md): the operand splits and the exact softmax on CUDA cores, the
+//   staging's split and transpose, which no warp overlaps with the products
+//   at one block an SM, and for D > 64 mma.sync's rate (about 12 cycles a
+//   TF32 m16n8k8 a sub-partition, read on the H100).
+// * "rows", fp32 above N = 192 or with D % 4 != 0, and bf16 above N = 256
+//   or with D % 8 != 0: the first design on CUDA cores. One
 //   warp per query row; lanes split the N keys for the scores, reduce max
 //   and sum with shuffles, and split the D output columns for P.V. K1 is a
 //   block of 8 warps per (b, h, 64 rows) with K (rows padded so that lanes
@@ -788,6 +837,35 @@ attention_batch_mma_kernel(const __grid_constant__ Maps m, int items, int N, int
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The blocks of a persistent kernel that fit on the card at once (SMs x
+// blocks an SM), cached per device and shared-memory size in the call
+// site's `cache` (the queries cost microseconds).
+struct SlotCache {
+  size_t smem[kMaxDevices];
+  int slots[kMaxDevices];
+};
+
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, SlotCache& cache, int* slots) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cache.smem[dev] == smem) {
+    *slots = cache.slots[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  *slots = sms * (per_sm > 1 ? per_sm : 1);
+  if (dev < kMaxDevices) {
+    cache.slots[dev] = *slots;
+    cache.smem[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -852,27 +930,10 @@ int launch_mma_nkp(const void* q, const void* k, const void* v, void* o, int B, 
   const size_t smem = batch_mma_smem_bytes(N, D);
   static size_t allowed[kMaxDevices];
   if ((err = allow_smem(attention_batch_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
-  // The blocks that fit on the card at once, cached per device and
-  // shared-memory size (the queries cost microseconds).
-  static size_t slots_smem[kMaxDevices];
-  static int slots_cached[kMaxDevices];
-  int dev = 0, slots = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices && slots_smem[dev] == smem) {
-    slots = slots_cached[dev];
-  } else {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, attention_batch_mma_kernel<NKP>, BatchMma<NKP>::kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    slots = sms * (per_sm > 1 ? per_sm : 1);
-    if (dev < kMaxDevices) {
-      slots_cached[dev] = slots;
-      slots_smem[dev] = smem;
-    }
-  }
+  static SlotCache cache;
+  int slots = 0;
+  err = resident_blocks(attention_batch_mma_kernel<NKP>, BatchMma<NKP>::kThreads, smem, cache, &slots);
+  if (err != cudaSuccess) return (int)err;
   const int grid = items < slots ? items : slots;
   attention_batch_mma_kernel<NKP><<<grid, BatchMma<NKP>::kThreads, smem, stream>>>(
       maps, items, N, D, scale, stages);
@@ -889,29 +950,688 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The "mma" variant in fp32: 3xTF32 on tensor cores (see the notes at the top).
+
+constexpr int kF32MaxN = 192;          // fp32 on tensor cores: N <= 192, D % 4 == 0
+constexpr int kF32Rows = 64;           // K1, 64 < D <= 128: 4 warps of 16 query rows a block
+constexpr int kF32Threads = 128;
+constexpr int kF32BatchThreads = 256;  // K3, 64 < D <= 128: 8 warps taking an item's 16-row tiles in turn
+
+// Row stride of K and V in shared memory, in floats: 128 columns (the S
+// products and the 16 n8 tiles of O read zeros past D), plus 4, so that a B
+// fragment's 8 rows x 4 columns fall in 32 different banks.
+constexpr int kF32Ld = 128 + 4;
+
+// K and V of one head, padded_keys(N) rows each (zero past N): K1's block,
+// and one stage of K3's; 202,752 bytes at 192 keys.
+__host__ __device__ inline size_t f32_head_bytes(int n) {
+  return (size_t)2 * padded_keys(n) * kF32Ld * sizeof(float);
+}
+
+// K3 double-buffers the items when two fit in a block.
+__host__ __device__ inline int batch_f32_stages(int n) { return 2 * f32_head_bytes(n) <= kMaxSmem ? 2 : 1; }
+
+__host__ __device__ inline size_t batch_f32_smem_bytes(int n) { return batch_f32_stages(n) * f32_head_bytes(n); }
+
+// 16 bytes from device memory at src to shared memory at dst, asynchronously;
+// src_bytes = 0 writes 16 zero bytes and reads nothing.
+__device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most `Pending` of the thread's committed copy groups are in flight.
+template <int Pending>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Starts the copy of one head's (n, d) fp32 matrix at src into shared memory
+// at dst: padded_keys(n) rows of kF32Ld floats, zero past n rows and past d
+// columns (up to 128). The block's Threads threads share the 16-byte chunks.
+template <int Threads>
+__device__ inline void stage_f32_async(const float* src, float* dst, int n, int d) {
+  const int ld = kF32Ld, chunks = 32, in_row = d / 4;
+  const int total = padded_keys(n) * chunks;
+  for (int i = threadIdx.x; i < total; i += Threads) {
+    const int r = i / chunks;
+    const int c = i - r * chunks;
+    const bool in = r < n && c < in_row;
+    cp_async16(dst + (size_t)r * ld + 4 * c, in ? src + (size_t)r * d + 4 * c : src, in ? 16 : 0);
+  }
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to about 21 bits, both parts TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// d += a b: m16n8k8, A row-major (16 x 8), B column-major (8 x 8), TF32 in,
+// fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two small cross terms first, then big x big.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_big, b_big);
+}
+
+// The softmax of 16 rows' fp32 scores in the accumulator layout of
+// m16n8k8 and of wgmma (s[j][0..1]: keys 8j + 2t and 8j + 2t + 1 of row g,
+// s[j][2..3] of row g + 8; the 4 lanes of a quad hold a row): pad keys (>=
+// n) take -inf; then the row max, e = exp(s - m), the row sums by quad
+// shuffles, and P = e / sum correctly rounded, in place.
+template <int NKP>
+__device__ __forceinline__ void softmax_f32(float (&s)[NKP / 8][4], int n, int t) {
+  if (n < NKP) {
+#pragma unroll
+    for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * j + 2 * t + e >= n) s[j][e] = s[j][2 + e] = -INFINITY;
+      }
+    }
+  }
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = expf(__fsub_rn(s[j][e], m0));
+      s[j][2 + e] = expf(__fsub_rn(s[j][2 + e], m1));
+      l0 = __fadd_rn(l0, s[j][e]);
+      l1 = __fadd_rn(l1, s[j][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, off));
+    l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, off));
+  }
+  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = div_rn(s[j][e], l0, r0);
+      s[j][2 + e] = div_rn(s[j][2 + e], l1, r1);
+    }
+  }
+}
+
+// One warp, for 64 < d <= 128: the 16 query rows row0 .. row0 + 15 of one
+// head, q at qh and o at oh ((n, d) each, row-major), K and V staged at k_s
+// and v_s (`stage_f32_async`). NKP = padded_keys(n) is the compile-time
+// extent of the score row, NKP / 2 floats a thread, and O takes 64 floats a
+// thread; the score registers die as P.V consumes them. The unrolled loops
+// carry no run-time guard (a guard would cut them into blocks the compiler
+// cannot interleave): every key tile and every column tile of O is
+// computed, on the staged zeros past n and d. Rows past n compute on a copy
+// of row n - 1 and are not stored. With kWaitV the warp waits for the
+// thread's last copy group and the block's barrier before P.V (K1, whose 4
+// warps all call this once: V lands while the scores compute).
+template <int NKP, bool kWaitV>
+__device__ inline void attend_tile_f32(const float* __restrict__ qh, const float* k_s, const float* v_s,
+                                       float* __restrict__ oh, int row0, int n, int d, float scale) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // A rows g and g + 8; B column (key or output column) g
+  const int t = lane % 4;  // A columns t and t + 4; accumulator columns 2t and 2t + 1
+  const int ld = kF32Ld;
+  const int ra = row0 + g, rb = ra + 8;
+  const float* qa = qh + (size_t)min(ra, n - 1) * d;
+  const float* qb = qh + (size_t)min(rb, n - 1) * d;
+
+  // S = (q * scale) K^T, unrounded fp32 sums: per k8 step over D, the A
+  // fragment (q at columns t and t + 4 of rows g and g + 8, read one step
+  // ahead), then per n8 tile of keys the B fragment (K at key g, columns t
+  // and t + 4).
+  float s[NKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+  float next[4];
+  auto load_q = [&](int kk, float (&x)[4]) {
+    const int c = 8 * kk + t;  // < d, since d % 4 == 0
+    const bool hi = c + 4 < d;
+    x[0] = qa[c];
+    x[1] = qb[c];
+    x[2] = hi ? qa[c + 4] : 0.f;
+    x[3] = hi ? qb[c + 4] : 0.f;
+  };
+  const int steps = (d + 7) / 8;
+  load_q(0, next);
+  for (int kk = 0; kk < steps; ++kk) {
+    uint32_t a_big[4], a_small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(__fmul_rn(next[e], scale), a_big[e], a_small[e]);
+    if (kk + 1 < steps) load_q(kk + 1, next);
+    const float* kc = k_s + (size_t)g * ld + 8 * kk + t;
+#pragma unroll
+    for (int j = 0; j < NKP / 8; ++j) {
+      uint32_t b_big[2], b_small[2];
+      split_tf32(kc[8 * j * ld], b_big[0], b_small[0]);
+      split_tf32(kc[8 * j * ld + 4], b_big[1], b_small[1]);
+      mma_3xtf32(s[j], a_big, a_small, b_big, b_small);
+    }
+  }
+
+  softmax_f32<NKP>(s, n, t);
+
+  if (kWaitV) {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // O = P V over 128 columns: per n8 tile j of keys, P's A fragment
+  // straight from s[j] (slot t holds key 8j + 2t, slot t + 4 key 8j + 2t +
+  // 1), and per n8 tile of output columns V's B fragment read with the same
+  // permutation.
+  float o[16][4];
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nb][e] = 0.f;
+  }
+  const float* vc = v_s + (size_t)(2 * t) * ld + g;
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+    uint32_t a_big[4], a_small[4];
+    split_tf32(s[j][0], a_big[0], a_small[0]);  // (row g, key 2t)
+    split_tf32(s[j][2], a_big[1], a_small[1]);  // (row g + 8, key 2t)
+    split_tf32(s[j][1], a_big[2], a_small[2]);  // (row g, key 2t + 1)
+    split_tf32(s[j][3], a_big[3], a_small[3]);  // (row g + 8, key 2t + 1)
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      uint32_t b_big[2], b_small[2];
+      split_tf32(vc[8 * j * ld + 8 * nb], b_big[0], b_small[0]);
+      split_tf32(vc[(8 * j + 1) * ld + 8 * nb], b_big[1], b_small[1]);
+      mma_3xtf32(o[nb], a_big, a_small, b_big, b_small);
+    }
+  }
+
+  // Written once: columns 2t and 2t + 1 of each n8 tile (both < d or both
+  // past it, since d % 4 == 0), rows g and g + 8.
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = 8 * nb + 2 * t;
+    if (c < d) {
+      if (ra < n) *reinterpret_cast<float2*>(oh + (size_t)ra * d + c) = make_float2(o[nb][0], o[nb][1]);
+      if (rb < n) *reinterpret_cast<float2*>(oh + (size_t)rb * d + c) = make_float2(o[nb][2], o[nb][3]);
+    }
+  }
+}
+
+// K1, "mma" in fp32 at 64 < D <= 128: grid (ceil(N / 64), H, B), 4 warps
+// of 16 query rows. K and V are copied in two groups, so the scores run
+// while V lands.
+template <int NKP>
+__global__ void __launch_bounds__(kF32Threads)
+attention_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int H, int N, int D,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + (size_t)padded_keys(N) * kF32Ld;
+  const size_t head = ((size_t)blockIdx.z * H + blockIdx.y) * (size_t)N * D;
+  stage_f32_async<kF32Threads>(k + head, k_s, N, D);
+  cp_async_commit();
+  stage_f32_async<kF32Threads>(v + head, v_s, N, D);
+  cp_async_commit();
+  cp_async_wait<1>();  // K has landed
+  __syncthreads();
+  attend_tile_f32<NKP, true>(q + head, k_s, v_s, o + head, blockIdx.x * kF32Rows + 16 * (threadIdx.x / 32), N,
+                             D, scale);
+}
+
+// K3, "mma" in fp32 at 64 < D <= 128: a persistent grid walking the items b * H + h from
+// blockIdx.x in steps of gridDim.x; the block's 8 warps take the 16-row
+// tiles of an item in turn. The next item's K and V are copied into the
+// other buffer while the current one computes (stages == 2), or after it.
+template <int NKP>
+__global__ void __launch_bounds__(kF32BatchThreads, 1)
+attention_batch_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o, int items, int N,
+                               int D, float scale, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* base = reinterpret_cast<float*>(smem);
+  const size_t rows = (size_t)padded_keys(N) * kF32Ld;  // floats of K (and of V) in a stage
+  const size_t head = (size_t)N * D;
+  int item = blockIdx.x;
+  if (item >= items) return;
+  stage_f32_async<kF32BatchThreads>(k + item * head, base, N, D);
+  stage_f32_async<kF32BatchThreads>(v + item * head, base + rows, N, D);
+  cp_async_commit();
+  for (int it = 0; item < items; ++it, item += gridDim.x) {
+    const int next = item + gridDim.x;
+    const int buf = stages == 2 ? it % 2 : 0;
+    float* k_s = base + buf * 2 * rows;
+    if (stages == 2 && next < items) {
+      // The other buffer was freed by the barrier that ended the last item.
+      float* other = base + (1 - buf) * 2 * rows;
+      stage_f32_async<kF32BatchThreads>(k + next * head, other, N, D);
+      stage_f32_async<kF32BatchThreads>(v + next * head, other + rows, N, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this item's K and V have landed, from every thread's copies
+    for (int r = 16 * (threadIdx.x / 32); r < N; r += 16 * (kF32BatchThreads / 32)) {
+      attend_tile_f32<NKP, false>(q + item * head, k_s, k_s + rows, o + item * head, r, N, D, scale);
+    }
+    __syncthreads();  // every warp is done with this buffer
+    if (stages == 1 && next < items) {
+      stage_f32_async<kF32BatchThreads>(k + next * head, base, N, D);
+      stage_f32_async<kF32BatchThreads>(v + next * head, base + rows, N, D);
+      cp_async_commit();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The "mma" variant in fp32 at N <= 192 and D <= 64: 3xTF32 by wgmma (see
+// the notes at the top).
+
+// One head's K and V^T as wgmma reads them, each split into big and small
+// TF32 parts (RNA-rounded fp32 bit patterns, which wgmma's truncation to
+// TF32 leaves exact), in the 128-byte swizzled layout of 32 floats a row:
+// K big, K small: 2 column blocks (d 0..31, 32..63) of NKP key rows;
+// V^T big, V^T small: NKP / 32 key blocks of 64 rows (d), the keys of each
+// 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7 (slot t of P's A
+// fragment holds key 2t, slot t + 4 key 2t + 1). 1024 * NKP bytes.
+__host__ __device__ inline size_t wg_head_bytes(int n) { return (size_t)1024 * padded_keys(n); }
+
+__host__ __device__ inline size_t wg_smem_bytes(int n) { return wg_head_bytes(n) + kSmemAlign; }
+
+// The big and small TF32 parts of four floats.
+__device__ inline void split4(const float4& x, uint4& big, uint4& small) {
+  split_tf32(x.x, big.x, small.x);
+  split_tf32(x.y, big.y, small.y);
+  split_tf32(x.z, big.z, small.z);
+  split_tf32(x.w, big.w, small.w);
+}
+
+// Writes one head's K and V^T, split, into st (1024-byte aligned), zero past
+// n keys and d columns. The block's Threads threads share the 16-byte chunks;
+// a warp's V^T stores are 32 keys of one row, 32 different banks.
+template <int NKP, int Threads>
+__device__ inline void stage_wg(const float* __restrict__ kh, const float* __restrict__ vh, unsigned char* st,
+                                int n, int d) {
+  unsigned char* kb = st;
+  unsigned char* ks = kb + (size_t)NKP * 256;
+  unsigned char* vb = ks + (size_t)NKP * 256;
+  unsigned char* vs = vb + (size_t)NKP * 256;
+  for (int i = threadIdx.x; i < NKP * 16; i += Threads) {
+    const int r = i / 16, c = i % 16;  // key, 4-column chunk
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n && 4 * c < d) x = *reinterpret_cast<const float4*>(kh + (size_t)r * d + 4 * c);
+    uint4 big, small;
+    split4(x, big, small);
+    const size_t off = (size_t)(c / 8) * NKP * 128 + swz(r, c % 8);
+    *reinterpret_cast<uint4*>(kb + off) = big;
+    *reinterpret_cast<uint4*>(ks + off) = small;
+  }
+  for (int i = threadIdx.x; i < NKP * 16; i += Threads) {
+    const int c = i / NKP, key = i - c * NKP;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < n && 4 * c < d) x = *reinterpret_cast<const float4*>(vh + (size_t)key * d + 4 * c);
+    uint4 big, small;
+    split4(x, big, small);
+    const int pos = (key & ~7) | ((key & 1) << 2) | ((key & 7) >> 1);
+    const int w = pos % 32;
+    const size_t blk = (size_t)(pos / 32) * 64 * 128 + 4 * (w % 4);
+    const uint32_t bw[4] = {big.x, big.y, big.z, big.w}, sw[4] = {small.x, small.y, small.z, small.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t off = blk + swz(4 * c + e, w / 4);
+      *reinterpret_cast<uint32_t*>(vb + off) = bw[e];
+      *reinterpret_cast<uint32_t*>(vs + off) = sw[e];
+    }
+  }
+}
+
+#define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F8(i) WG_F4(i), WG_F4(i + 4)
+#define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
+
+// d[0, 32) += A (64 x 8 TF32 in registers) B (8 x 64 TF32, K-major in
+// shared memory, read by descriptor).
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_F32
+#undef WG_F8
+#undef WG_F4
+
+__device__ __forceinline__ void reg_fence_u(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// A fragment registers (big and small) of one k8 step: kept allocated and
+// untouched from the wgmma that reads them until the wait that retires it.
+struct SplitA {
+  uint32_t big[4], small[4];
+  __device__ void fence() {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      reg_fence_u(big[e]);
+      reg_fence_u(small[e]);
+    }
+  }
+  __device__ void set(const float (&x)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(x[e], big[e], small[e]);
+  }
+};
+
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending) : "memory");
+}
+
+// d += a b in 3xTF32 over one k8 step, for N = 64 columns per descriptor
+// pair: a_small b_big, a_big b_small, a_big b_big.
+__device__ __forceinline__ void wgmma_3xtf32_n64(float* d, const SplitA& a, uint64_t b_big, uint64_t b_small) {
+  wgmma_tf32_rs_n64(d, a.small, b_big);
+  wgmma_tf32_rs_n64(d, a.big, b_small);
+  wgmma_tf32_rs_n64(d, a.big, b_big);
+}
+
+
+// One warpgroup: the 64 query rows row0 .. row0 + 63 of one head, q at qh,
+// o at oh ((n, d), row-major), K and V^T split at st (`stage_wg`). The
+// arithmetic is `attend_tile_f32`'s, step for step, with wgmma for the
+// products: the A operands (q, then P) come from registers, two k8 steps
+// of S in flight and kPvInFlight (1 or 2) of P.V, each step's registers
+// retired by wgmma.wait_group before they are written again. kPvInFlight
+// changes when the routine waits, not what it computes: K1 takes 2, K3 1,
+// the depth at which ptxas fits each kernel's registers without a spill.
+template <int NKP, int kPvInFlight>
+__device__ inline void attend_tile_wg(const float* __restrict__ qh, const unsigned char* st,
+                                      float* __restrict__ oh, int row0, int n, int d, float scale) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w = (threadIdx.x / 32) % 4;
+  const int ra = row0 + 16 * w + g, rb = ra + 8;
+  const float* qa = qh + (size_t)min(ra, n - 1) * d;
+  const float* qb = qh + (size_t)min(rb, n - 1) * d;
+  // Descriptors of K big, K small, V^T big and V^T small; a k8 step or a
+  // block adds its byte offset / 16 to the start-address field (14 bits,
+  // shared memory stays below 256 KB, so the sum never carries out of it).
+  const uint64_t dkb = gmma_desc(smem_u32(st), 16, 1024);
+  const uint64_t dks = dkb + NKP * 256 / 16, dvb = dkb + NKP * 512 / 16, dvs = dkb + NKP * 768 / 16;
+
+  float s[NKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = 0.f;
+      reg_fence(s[j][e]);
+    }
+  }
+  // S over the 8 k8 steps of D <= 64 (q reads 0 and K holds zeros past d).
+  SplitA a[2];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int c = 8 * kk + t;
+    const bool lo = c < d, hi = c + 4 < d;
+    const float x[4] = {lo ? __fmul_rn(qa[c], scale) : 0.f, lo ? __fmul_rn(qb[c], scale) : 0.f,
+                        hi ? __fmul_rn(qa[c + 4], scale) : 0.f, hi ? __fmul_rn(qb[c + 4], scale) : 0.f};
+    SplitA& cur = a[kk % 2];
+    wgmma_wait<1>();  // the step that read these registers two steps ago is done
+    cur.fence();
+    cur.set(x);
+    wgmma_fence();
+#pragma unroll
+    for (int nb = 0; nb < NKP / 64; ++nb) {
+      const uint32_t off = ((kk / 4) * NKP * 128 + nb * 64 * 128 + 32 * (kk % 4)) / 16;
+      wgmma_3xtf32_n64(&s[8 * nb][0], cur, dkb + off, dks + off);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  a[0].fence();
+  a[1].fence();
+#pragma unroll
+  for (int j = 0; j < NKP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(s[j][e]);
+  }
+
+  softmax_f32<NKP>(s, n, t);
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    o[i] = 0.f;
+    reg_fence(o[i]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < NKP / 8; ++kk) {
+    SplitA& cur = a[kPvInFlight == 2 ? kk % 2 : 0];
+    if (kPvInFlight == 2) {
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    cur.fence();
+    const float x[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};  // keys 2t (rows g, g + 8), then 2t + 1
+    cur.set(x);
+    wgmma_fence();
+    const uint32_t off = ((kk / 4) * 64 * 128 + 32 * (kk % 4)) / 16;
+    wgmma_3xtf32_n64(o, cur, dvb + off, dvs + off);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  a[0].fence();
+  a[1].fence();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) reg_fence(o[i]);
+
+  // Written once: columns 8j + 2t and 8j + 2t + 1, rows g and g + 8 of the warp's 16.
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (c < d) {
+      if (ra < n) *reinterpret_cast<float2*>(oh + (size_t)ra * d + c) = make_float2(o[4 * j], o[4 * j + 1]);
+      if (rb < n) *reinterpret_cast<float2*>(oh + (size_t)rb * d + c) = make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+  }
+}
+
+// K1, fp32 by wgmma: grid (H, B), one block of NKP / 64 warpgroups per
+// head, one 64-row tile each.
+template <int NKP>
+__global__ void __launch_bounds__(NKP * 2, 1)
+attention_f32_wg_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int H, int N, int D,
+                            float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* st = aligned_smem(smem_raw);
+  const size_t head = ((size_t)blockIdx.y * H + blockIdx.x) * (size_t)N * D;
+  stage_wg<NKP, NKP * 2>(k + head, v + head, st, N, D);
+  fence_proxy_async();
+  __syncthreads();
+  attend_tile_wg<NKP, 2>(q + head, st, o + head, 64 * (threadIdx.x / 128), N, D, scale);
+}
+
+// K3, fp32 by wgmma: a persistent grid walking the items b * H + h, one
+// block an SM (the split head takes 192 KB at 192 keys), staging each item
+// after the last one's tiles are done. Its block has at most 2 warpgroups,
+// which take the 64-row tiles of an item in turn: 3 warpgroups hold 168
+// registers a thread, and with the item loop's the routine spills there
+// (K1's 3 warpgroups fit, at 164).
+template <int NKP>
+struct BatchWg {
+  static constexpr int kThreads = NKP >= 128 ? 256 : 128;
+};
+
+template <int NKP>
+__global__ void __launch_bounds__(BatchWg<NKP>::kThreads, 1)
+attention_batch_f32_wg_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, float* __restrict__ o, int items, int N,
+                                  int D, float scale) {
+  constexpr int kThreads = BatchWg<NKP>::kThreads;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* st = aligned_smem(smem_raw);
+  const size_t head = (size_t)N * D;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    stage_wg<NKP, kThreads>(k + item * head, v + item * head, st, N, D);
+    fence_proxy_async();
+    __syncthreads();
+    for (int r = 64 * (threadIdx.x / 128); r < N; r += kThreads / 2) {
+      attend_tile_wg<NKP, 1>(q + item * head, st, o + item * head, r, N, D, scale);
+    }
+    __syncthreads();  // every warpgroup is done with st
+  }
+}
+
+template <int NKP>
+int launch_f32_wg_nkp(const float* q, const float* k, const float* v, float* o, int B, int H, int N, int D,
+                      float scale, int per_batch, cudaStream_t stream) {
+  cudaError_t err;
+  const size_t smem = wg_smem_bytes(N);
+  if (!per_batch) {
+    static size_t allowed[kMaxDevices];
+    if ((err = allow_smem(attention_f32_wg_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
+    attention_f32_wg_mma_kernel<NKP><<<dim3(H, B), NKP * 2, smem, stream>>>(q, k, v, o, H, N, D, scale);
+    return (int)cudaGetLastError();
+  }
+  static size_t allowed[kMaxDevices];
+  if ((err = allow_smem(attention_batch_f32_wg_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
+  static SlotCache cache;
+  int slots = 0;
+  err = resident_blocks(attention_batch_f32_wg_mma_kernel<NKP>, BatchWg<NKP>::kThreads, smem, cache, &slots);
+  if (err != cudaSuccess) return (int)err;
+  const int items = B * H;
+  attention_batch_f32_wg_mma_kernel<NKP><<<items < slots ? items : slots, BatchWg<NKP>::kThreads, smem, stream>>>(
+      q, k, v, o, items, N, D, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int NKP>
+int launch_f32_mma_nkp(const float* q, const float* k, const float* v, float* o, int B, int H, int N,
+                       int D, float scale, int per_batch, cudaStream_t stream) {
+  cudaError_t err;
+  if (!per_batch) {
+    const size_t smem = f32_head_bytes(N);
+    static size_t allowed[kMaxDevices];
+    if ((err = allow_smem(attention_f32_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
+    const dim3 grid((N + kF32Rows - 1) / kF32Rows, H, B);
+    attention_f32_mma_kernel<NKP><<<grid, kF32Threads, smem, stream>>>(q, k, v, o, H, N, D, scale);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = batch_f32_smem_bytes(N);
+  static size_t allowed[kMaxDevices];
+  if ((err = allow_smem(attention_batch_f32_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
+  static SlotCache cache;
+  int slots = 0;
+  err = resident_blocks(attention_batch_f32_mma_kernel<NKP>, kF32BatchThreads, smem, cache, &slots);
+  if (err != cudaSuccess) return (int)err;
+  const int items = B * H;
+  attention_batch_f32_mma_kernel<NKP><<<items < slots ? items : slots, kF32BatchThreads, smem, stream>>>(
+      q, k, v, o, items, N, D, scale, batch_f32_stages(N));
+  return (int)cudaGetLastError();
+}
+
+// The fp32 "mma" variant's shared memory: K1's block, or K3's with per_batch.
+__host__ __device__ inline size_t f32_mma_smem_bytes(int n, int d, int per_batch) {
+  if (d <= 64) return wg_smem_bytes(n);
+  return per_batch ? batch_f32_smem_bytes(n) : f32_head_bytes(n);
+}
+
+int launch_f32_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
+                   float scale, int per_batch, cudaStream_t s) {
+  // 16-byte rows from 16-byte boundaries (float4 loads and cp.async); at
+  // most 192 keys (the wrapper sends other shapes to "rows").
+  if (N > kF32MaxN || D % 4 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  if (D <= 64) {  // wgmma
+    switch (padded_keys(N)) {
+      case 64: return launch_f32_wg_nkp<64>(qf, kf, vf, of, B, H, N, D, scale, per_batch, s);
+      case 128: return launch_f32_wg_nkp<128>(qf, kf, vf, of, B, H, N, D, scale, per_batch, s);
+      default: return launch_f32_wg_nkp<192>(qf, kf, vf, of, B, H, N, D, scale, per_batch, s);
+    }
+  }
+  switch (padded_keys(N)) {  // mma.sync
+    case 64: return launch_f32_mma_nkp<64>(qf, kf, vf, of, B, H, N, D, scale, per_batch, s);
+    case 128: return launch_f32_mma_nkp<128>(qf, kf, vf, of, B, H, N, D, scale, per_batch, s);
+    default: return launch_f32_mma_nkp<192>(qf, kf, vf, of, B, H, N, D, scale, per_batch, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one block needs; the wrapper refuses shapes above
 // the card's per-block limit before it launches. per_batch selects K3's
-// block, else K1's; use_mma the "mma" variant (bf16, N <= 256), else "rows".
+// block, else K1's; use_mma the "mma" variant (bf16 with esize 2, fp32 with
+// esize 4; N <= 256), else "rows".
 size_t whmr_attention_smem_bytes(int n, int d, int esize, int per_batch, int use_mma) {
+  if (use_mma && esize == 4) return f32_mma_smem_bytes(n, d, per_batch);
   if (use_mma) return per_batch ? batch_mma_smem_bytes(n, d) : mma_tile_bytes(n, d);
   return smem_bytes(n, d, esize, per_batch ? kBatchWarps : kWarps);
 }
 
 // q, k, v, o: contiguous (B, H, N, D); is_bf16 selects bf16, else fp32;
-// use_mma the tensor-core variant, which takes bf16 with N <= 256, D % 8 == 0
-// and 16-byte aligned pointers only.
+// use_mma the tensor-core variant, which takes N <= 256 and 16-byte aligned
+// pointers only, with D % 8 == 0 in bf16 and, in fp32, D % 4 == 0 and K and
+// V of a head within a block's shared memory.
 // Returns cudaGetLastError() after the launch (0 on success).
 int whmr_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
                        int D, float scale, int is_bf16, int use_mma, void* stream) {
   if (D < 1 || D > kMaxD || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_mma) {
-    if (!is_bf16 || N > kMmaMaxN) return (int)cudaErrorInvalidValue;
-    return launch_mma(q, k, v, o, B, H, N, D, scale, 0, s);
+    if (N > kMmaMaxN) return (int)cudaErrorInvalidValue;
+    if (is_bf16) return launch_mma(q, k, v, o, B, H, N, D, scale, 0, s);
+    return launch_f32_mma(q, k, v, o, B, H, N, D, scale, 0, s);
   }
   if (is_bf16) return launch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
   return launch<float>(q, k, v, o, B, H, N, D, scale, s);
@@ -923,8 +1643,9 @@ int whmr_attention_batch_fwd(const void* q, const void* k, const void* v, void* 
   if (D < 1 || D > kMaxD || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_mma) {
-    if (!is_bf16 || N > kMmaMaxN) return (int)cudaErrorInvalidValue;
-    return launch_mma(q, k, v, o, B, H, N, D, scale, 1, s);
+    if (N > kMmaMaxN) return (int)cudaErrorInvalidValue;
+    if (is_bf16) return launch_mma(q, k, v, o, B, H, N, D, scale, 1, s);
+    return launch_f32_mma(q, k, v, o, B, H, N, D, scale, 1, s);
   }
   if (is_bf16) return launch_batch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
   return launch_batch<float>(q, k, v, o, B, H, N, D, scale, s);

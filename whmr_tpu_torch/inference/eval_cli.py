@@ -9,7 +9,7 @@ guards. Run it as
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card; it never falls back. The model is fp32, as in whmr_tpu;
 `--misc vit.attn_impl pallas` runs the ViT's attention through the port's
-CUDA kernel (its CUDA-core variant, in fp32).
+CUDA kernel (in fp32 its tensor-core variant, 3xTF32).
 
 Protocol variants carried over from the reference:
 - `--dataset mpi-inf-3dhp` switches the joint mapper to J17

@@ -10,11 +10,15 @@ the plain PyTorch version of exactly the same steps, for both: the CPU tests
 use it, and chip_smoke.py holds each kernel against it on the card.
 
 Each kernel has two variants, which the wrappers choose by dtype and shape
-only (`_variant`): "mma", the tensor-core routine, for bf16 with N <= 256
-and D a multiple of 8 (TMA reads 16-byte rows), and "rows", the CUDA-core
-row kernels, for fp32 (tensor cores would take fp32 as TF32) and the other
-bf16 shapes. Both variants compute the same function with the same
-numerics contract and the same plain version.
+only (`_variant`): "mma", on tensor cores, and "rows", the CUDA-core row
+kernels. "mma" takes bf16 with N <= 256 and D a multiple of 8 (TMA reads
+16-byte rows), and fp32 with N <= 192 and D a multiple of 4; in fp32 it
+computes each product in 3xTF32 (every operand split into two TF32 parts,
+three products accumulated in fp32), which keeps about 21 mantissa bits
+and the 2e-5 contract that one TF32 product would not: by wgmma for D <=
+64, by mma.sync above. "rows" takes every other shape. Both variants
+compute the same function with the same numerics contract and the same
+plain version.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; it never falls back from one to the other, nor from one
@@ -43,6 +47,7 @@ from whmr_tpu_torch.ops import cuda_build
 _MAX_SMEM = 232448
 _MAX_D = 128
 _MMA_MAX_N = 256
+_F32_MMA_MAX_N = 192
 _MMA_ROWS = 64  # K1's query rows a block in the "mma" variant (kMmaRows)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -85,11 +90,21 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return o.to(q.dtype)
 
 
+def _padded_keys(n: int) -> int:
+    """The key count the "mma" kernels are instantiated for (`padded_keys`)."""
+    return 64 if n <= 64 else 128 if n <= 128 else 192 if n <= 192 else 256
+
+
 def _variant(shape, dtype: torch.dtype) -> str:
     """The kernel variant for (B, H, N, D) inputs of `dtype`: "mma" (tensor
-    cores) for bf16 with N <= 256 and D % 8 == 0, else "rows" (CUDA cores).
-    Shape and dtype alone decide; nothing at run time switches variants."""
-    mma = dtype == torch.bfloat16 and shape[2] <= _MMA_MAX_N and shape[3] % 8 == 0
+    cores) for bf16 at N <= 256 with D % 8 == 0 and for fp32 (3xTF32) at N
+    <= 192 with D % 4 == 0, else "rows" (CUDA cores). Shape and dtype alone
+    decide; nothing at run time switches variants."""
+    n, d = shape[2], shape[3]
+    if dtype == torch.bfloat16:
+        mma = n <= _MMA_MAX_N and d % 8 == 0
+    else:
+        mma = n <= _F32_MMA_MAX_N and d % 4 == 0
     return "mma" if mma else "rows"
 
 
@@ -98,18 +113,29 @@ def _smem_bytes(shape, dtype: torch.dtype, per_batch: bool, variant: str | None 
     `variant` (by default the one `_variant` picks); csrc/attention.cu's
     `whmr_attention_smem_bytes` gives the same figures.
 
-    "mma": 128-byte rows, one set per 64 columns of D, plus 1024 bytes to
-    align the swizzled layout (csrc/attention.cu). K1 holds its 64 query
-    rows, and K and V with N padded to the kernel's key count (64, 128, 192
-    or 256); K3 holds Q, K and V of one (b, h) item with that many rows, and
-    two such items when they fit in a block (it loads the next while the
-    current one computes). "rows": K with rows padded to an odd number of
-    32-bit words and V in the input dtype, and an fp32 score row (N) and
-    query row (D) for each of the block's warps (8 for K1, 16 for K3).
+    "mma" in bf16: 128-byte rows, one set per 64 columns of D, plus 1024
+    bytes to align the swizzled layout (csrc/attention.cu). K1 holds its 64
+    query rows, and K and V with N padded to the kernel's key count (64,
+    128, 192 or 256); K3 holds Q, K and V of one (b, h) item with that many
+    rows, and two such items when they fit in a block (it loads the next
+    while the current one computes). "mma" in fp32 at D <= 64 (wgmma): K and
+    V^T of one head, each split into two TF32 parts, padded_keys(N) x 64
+    floats a part, plus 1024 bytes of alignment, for K1 and for K3. At 64 <
+    D <= 128 (mma.sync): K and V of one head, padded_keys(N) rows of 132
+    floats, for K1, and for K3 two such stages when they fit.
+    "rows": K with rows padded to an odd number of 32-bit words and V in
+    the input dtype, and an fp32 score row (N) and query row (D) for each of
+    the block's warps (8 for K1, 16 for K3).
     """
     n, d = shape[2], shape[3]
-    if (variant or _variant(shape, dtype)) == "mma":
-        nkp = 64 if n <= 64 else 128 if n <= 128 else 192 if n <= 192 else 256  # padded_keys()
+    variant = variant or _variant(shape, dtype)
+    if variant == "mma" and dtype == torch.float32:
+        if d <= 64:
+            return 4 * _padded_keys(n) * 64 * 4 + 1024
+        item = 2 * _padded_keys(n) * 132 * 4
+        return 2 * item if per_batch and 2 * item <= _MAX_SMEM else item
+    if variant == "mma":
+        nkp = _padded_keys(n)
         row = 128 * -(-d // 64)
         if not per_batch:
             return (_MMA_ROWS + 2 * nkp) * row + 1024
@@ -146,7 +172,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool =
             variant: str | None = None) -> torch.Tensor:
     """K1, or K3 with `per_batch`, in `variant` (by default `_variant`'s
     choice; chip_smoke.py names "rows" to time the CUDA-core kernel at a
-    bf16 shape beside the tensor-core one)."""
+    shape beside the tensor-core one)."""
     b, h, n, d = q.shape
     variant = variant or _variant(q.shape, q.dtype)
     lib = _kernel_lib()
@@ -157,8 +183,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool =
             f"more than the {_MAX_SMEM} B a block may use"
         )
     if variant == "mma":
-        # TMA reads from 16-byte boundaries; a contiguous view off one (an
-        # offset into a larger tensor) is copied, with the same result.
+        # The tensor-core kernels read 16-byte rows from 16-byte boundaries
+        # (TMA, cp.async, float4 loads); a contiguous view off one (an offset
+        # into a larger tensor) is copied, with the same result.
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -231,8 +258,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """softmax((q/sqrt(D)) k^T) v over (B, H, N, D) tensors, in their dtype.
 
     CUDA tensors go through the hand-written kernel (counted in
-    `attention.launches`, and its tensor-core launches, bf16 with N <= 256
-    and D % 8 == 0, also in `attention.mma_launches`); CPU tensors through
+    `attention.launches`, and its tensor-core launches, the "mma" variant
+    in either dtype, also in `attention.mma_launches`); CPU tensors through
     `attention_reference`. The variant follows from dtype and shape alone
     (`_variant`).
     """
