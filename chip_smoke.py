@@ -138,6 +138,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its plain version through attention() and the custom op, beside
    scaled_dot_product_attention.
 
+11. Branches (`phase_branches`), at full width, on phase 8's dataset and
+   checkpoint: (f) whmr_tpu's other attention formulations, one name for
+   each plain body ("bf16sm", and "xla_dpa" as
+   scaled_dot_product_attention; "split", "bhnd" and "bhnd_bf16sm" run
+   the same bodies as "einsum" and "bf16sm"), switched in place in the
+   ViT-B bf16 forward at B=48: each within 1e-3 m of "einsum", no kernel
+   launched; (d) one B=64 step's gradients applied by `train.fused_adam`
+   and by the foreach Adam from the same state: parameters within 1e-6;
+   (b) the Graphormer model (`pymaf.grph_on`, "pallas") forward at B=48
+   with a frame: K1 12 launches on tensor cores, the refined (48, 6890, 3)
+   mesh finite, apart from the parametric one and within 5e-2 of its fp32
+   twin's move from it, the fp32 twin within 1e-4 m of the same weights on
+   the CPU at B=2; 3 steps at B=64 of its "einsum" twin: K2 once a step, no
+   parameter losses on the appended stage, every Graphormer tensor moved
+   but the key biases; (a) the res50 backbone (256x256 crops, 64x64
+   heatmap) forward at B=48 against its fp32 twin (2e-3 m), K2 at its
+   64x64 render against the plain version, 3 steps at B=64 (K2 once a
+   step, moved parameters and BatchNorm buffers, step 1's loss within
+   2e-3 relative of the fp32 twin's); (c) `whmr-train --regressor hmr` 3
+   steps of B=64 and `whmr-eval --regressor hmr` on its checkpoint, equal
+   to run_evaluation(regressor="hmr") within 1e-4, no launches; (e) phase
+   8's weights as a reference {"model": state_dict} .pt through
+   `whmr-convert --strict`, and `whmr-eval` on the output equal to phase
+   8's metric within 1e-4 (K1 12 a batch). Times: crops/s of every
+   forward, ms a step of every step, both Adams' step and update in
+   turns, HMR's whmr-train ms a step and whmr-eval crops/s.
+
 Output: a line with the card's name and power limit, one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}.
 """
@@ -169,6 +196,8 @@ from whmr_tpu_torch.data.assets import synthetic_smpl_assets
 from whmr_tpu_torch.data import loader as loader_module
 from whmr_tpu_torch.data.loader import BatchLoader, device_prefetch
 from whmr_tpu_torch.data.npz_dataset import NpzDataset
+from whmr_tpu_torch.models.layers import Attention
+from whmr_tpu_torch.models.regressor import body_consts_from_assets
 from whmr_tpu_torch.models.smpl import smpl_forward
 from whmr_tpu_torch.models.whmr import WHMR, build_model
 from whmr_tpu_torch.ops import attention as k1
@@ -188,7 +217,7 @@ from whmr_tpu_torch.training import train_step as ts
 from whmr_tpu_torch.training import trainer as trainer_module
 from whmr_tpu_torch.training.gt_renderer import build_render_consts, raster_inputs
 from whmr_tpu_torch.training.trainer import Trainer
-from whmr_tpu_torch.utils import profiling
+from whmr_tpu_torch.utils import convert_cli, profiling
 from whmr_tpu_torch.utils.checkpoint import CheckpointManager, _to_host
 from whmr_tpu_torch.utils.testing import (
     make_example_inputs,
@@ -266,6 +295,30 @@ VIDEO_FRAMES = 12
 # 2.75e-5 to 1.55e-4 m), against the bf16 forward's limit of 1e-3 m: 1e-6
 # m, fp32's resolution at the body's scale, in place of 10x a zero reading.
 SERVE_VERTS_TOL = 1e-6
+# The remaining branches: forwards at B=48, 3 train steps at B=64 (the
+# default train.batch_size); whmr_tpu's other attention formulations.
+BRANCH_FWD_BATCH, BRANCH_STEPS = 48, 3
+# One name for each plain body other than "einsum"'s (layers.ATTN_BODIES:
+# "split" and "bhnd" run "einsum"'s, "bhnd_bf16sm" runs "bf16sm"'s).
+ATTN_FORMULATIONS = ("bf16sm", "xla_dpa")
+# Vertices of each formulation's bf16 forward against "einsum"'s, m (the
+# main path's limit between "pallas" and "einsum").
+ATTN_IMPLS_TOL = 1e-3
+# The fused Adam's parameters against the foreach Adam's after one step
+# from the same state and gradients.
+FUSED_ADAM_TOL = 1e-6
+# res50 bf16 against its fp32 twin: the vertices, m (the main path's
+# fp32 limit), and step 1's loss, relative: about 10x the first reading on
+# an H100 80GB HBM3 (2.07e-4), as LOSS_RTOL is set.
+RES50_VERTS_TOL, RES50_LOSS_RTOL = 2e-3, 2e-3
+# The Graphormer model's refined vertices. bf16 against its fp32 twin on
+# the card, relative to the largest move of the fp32 stage (random weights
+# at unit gain move the mesh metres, so bf16's rounding shows as cm: 0.0813
+# m, 3.096e-2, on an H100 80GB HBM3), at the main path's relative limit for
+# the ViT features (which read 1.5-1.9e-2). The fp32 twin against the same
+# weights on the CPU at B=2, m (the CPU tests' fp32 tolerance; 4.3-4.5e-6
+# read): the check that holds the stage's arithmetic on the card.
+GRAPHORMER_BF16_RTOL, GRAPHORMER_CPU_TOL = 5e-2, 1e-4
 
 
 # Each kernel wrapper's launch count, by the name the kernels line gives it.
@@ -2063,6 +2116,396 @@ def phase_serve(root, paths, cli_metric):
     return launches
 
 
+def _set_attn_impl(model, impl):
+    """The ViT blocks' attention formulation, switched in place (the Tz
+    head's block always runs "einsum")."""
+    for m in model.feature_extractor.modules():
+        if isinstance(m, Attention):
+            m.impl = impl
+
+
+def _forward_ms(model, consts, inputs, iters=5):
+    """Synchronised host ms of a forward after 2 warm-up calls."""
+    for _ in range(2):
+        model(consts, **inputs)
+    return _synced_ms(lambda: model(consts, **inputs), iters)
+
+
+def _steps(cfg, model, state, consts, batch, g, rc, n):
+    """`n` train steps; returns the metrics of each."""
+    out = []
+    for _ in range(n):
+        state, metrics = ts.train_step(cfg, model, state, consts, batch, g, rc)
+        out.append(metrics)
+    torch.cuda.synchronize()
+    return out
+
+
+def _check_metrics(history, label):
+    for i, metrics in enumerate(history):
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
+        check(not bad, f"{label} step {i + 1}: non-finite metrics {bad}")
+
+
+def _step_ms(cfg, model, state, consts, batch, g, rc):
+    """Synchronised host ms a train step, after one warm-up step."""
+    ts.train_step(cfg, model, state, consts, batch, g, rc)
+    return _synced_ms(lambda: ts.train_step(cfg, model, state, consts, batch, g, rc), BRANCH_STEPS)
+
+
+def _branch_batch(cfg, consts):
+    np_batch = make_keypoints_consistent(consts, make_example_train_batch(cfg, cfg.train.batch_size))
+    return {k: torch.from_numpy(v).cuda() for k, v in np_batch.items()}
+
+
+def branch_attention_and_fused_adam(rc, launches):
+    """(f) the other plain attention bodies in the ViT-B bf16 forward at
+    B=48 against "einsum"; (d) a B=64 train step's gradients applied by
+    the fused and by the foreach Adam from the same state, and the step
+    timed with each."""
+    cfg = WHMRConfig()
+    model, consts = build_model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    inputs = _inputs(cfg, BRANCH_FWD_BATCH, False, "cuda")
+    with torch.inference_mode():
+        ref = _verts(model(consts, **inputs))
+        for impl in ATTN_FORMULATIONS:
+            _set_attn_impl(model, impl)
+            model(consts, **inputs)
+            reset_launches()
+            out = _verts(model(consts, **inputs))
+            torch.cuda.synchronize()
+            launches[f"attention {impl}"] = n = read_launches()
+            check(not any(n.values()), f"the {impl} formulation launched a kernel: {n}")
+            d = max((a.float() - b.float()).abs().max().item() for a, b in zip(out, ref))
+            check(all(bool(torch.isfinite(v).all()) for v in out), f"{impl}: non-finite vertices")
+            ms = _forward_ms(model, consts, inputs)
+            log(f"branches (f): ViT-B bf16 forward B={BRANCH_FWD_BATCH} attn_impl={impl}: vertices "
+                f"max_abs_diff {d:.4g} m against einsum (tolerance {ATTN_IMPLS_TOL} m); {BRANCH_FWD_BATCH / ms * 1e3:.1f} "
+                f"crops/s ({ms:.2f} ms a forward)")
+            check(d <= ATTN_IMPLS_TOL, f"the {impl} formulation differs from einsum by {d} m")
+        _set_attn_impl(model, "einsum")
+        ms = _forward_ms(model, consts, inputs)
+        log(f"branches (f): ViT-B bf16 forward B={BRANCH_FWD_BATCH} attn_impl=einsum: "
+            f"{BRANCH_FWD_BATCH / ms * 1e3:.1f} crops/s ({ms:.2f} ms a forward)")
+
+    # (d) One step's gradients, applied from the same parameters by each
+    # optimizer (two backwards would differ: the step's sums use atomics).
+    batch = _branch_batch(cfg, consts)
+    model.train()
+    state = ts.create_train_state(cfg, model)
+    grads, _ = ts._microbatch_grads(cfg, model, state, consts, batch, torch.Generator(device="cuda").manual_seed(1), rc)
+    norm = state.grad_norm(list(grads.values()))
+    p0 = {k: p.detach().clone() for k, p in state.params.items()}
+    state.apply_gradients(grads, norm)
+    foreach = {k: p.detach().clone() for k, p in state.params.items()}
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(p0[k])
+    fused_cfg = cfg.with_overrides(**{"train.fused_adam": True})
+    fstate = ts.create_train_state(fused_cfg, model)
+    check(type(fstate.tx).__name__ == "FusedAdam", f"train.fused_adam made a {type(fstate.tx).__name__}")
+    fstate.apply_gradients(grads, norm)
+    d = max((fstate.params[k].detach() - foreach[k]).abs().max().item() for k in foreach)
+    moved = max((foreach[k] - p0[k]).abs().max().item() for k in foreach)
+    log(f"branches (d): the fused Adam's parameters after one B={cfg.train.batch_size} step against the foreach "
+        f"Adam's from the same state and gradients: max_abs_diff {d:.3g} (tolerance {FUSED_ADAM_TOL}; the step moved "
+        f"parameters by up to {moved:.3g})")
+    check(d <= FUSED_ADAM_TOL and moved > 0, f"fused Adam differs from the foreach Adam by {d}")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    upd = {"foreach": [], "fused": []}
+    step = {"foreach": [], "fused": []}
+    retries = {"foreach": 0, "fused": 0}
+    states = {"foreach": state, "fused": fstate}
+    for name in ("foreach", "fused", "fused", "foreach"):
+        st = states[name]
+        before = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        upd[name].append(_synced_ms(lambda: st.apply_gradients(grads, norm), 5))
+        step[name].append(_step_ms(cfg, model, st, consts, batch, g, rc))
+        retries[name] += torch.cuda.memory_stats().get("num_alloc_retries", 0) - before
+    del grads, p0, foreach
+    log(f"branches (d): B={cfg.train.batch_size} bf16 train step (ViT-B, GT render) " + "; ".join(
+        f"{name} Adam {np.mean(step[name]):.2f} ms a step ({[round(x, 2) for x in step[name]]}), the update alone "
+        f"{np.mean(upd[name]):.2f} ms ({[round(x, 2) for x in upd[name]]}), {retries[name]} allocator retries"
+        for name in step) + f" (synchronised host clock, in turns); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return consts
+
+
+def branch_graphormer(consts, rc, launches):
+    """(b) the Graphormer model: the bf16 forward at B=48 with "pallas"
+    attention, and 3 train steps at B=64 (its einsum twin: K1 is
+    forward-only)."""
+    cfg = WHMRConfig().with_overrides(**{"pymaf.grph_on": True, "vit.attn_impl": "pallas"})
+    model, _ = build_model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    inputs = _inputs(cfg, BRANCH_FWD_BATCH, True, "cuda")
+    with torch.inference_mode():
+        model(consts, **inputs)
+        reset_launches()
+        out = model(consts, **inputs)
+        torch.cuda.synchronize()
+        launches["graphormer forward"] = n = read_launches()
+        check(n["attention"] == n["attention.mma"] == 12, f"Graphormer forward: K1 launches {n}, want 12 on tensor cores")
+        check(n["rasterizer"] == n["fused_attention"] == 0, f"Graphormer forward: K2 or K3 launched: {n}")
+        check(len(out["smpl_out"]) == 5 and out["refined"] is out["smpl_out"][-1], "Graphormer: no appended stage")
+        refined, last = out["refined"]["verts"], out["smpl_out"][3]["verts"]
+        check(refined.shape == (BRANCH_FWD_BATCH, 6890, 3) and bool(torch.isfinite(refined).all()),
+              f"refined verts {tuple(refined.shape)}, finite {bool(torch.isfinite(refined).all())}")
+        d = (refined - last.float()).abs().max().item()
+        check(d > 1e-3, f"the refined mesh equals the parametric step's (max_abs_diff {d} m)")
+        # The refined mesh against the fp32 twin's on the card, relative to
+        # how far the fp32 stage moves the mesh, and the fp32 twin against
+        # the same weights on the CPU at B=2.
+        twin = _twin(cfg, model, torch.float32, "pallas")
+        ref = twin(consts, **inputs)
+        d_twin = (refined.float() - ref["refined"]["verts"]).abs().max().item()
+        rel_twin = d_twin / (ref["refined"]["verts"] - ref["smpl_out"][3]["verts"]).abs().max().item()
+        del ref
+        small = _inputs(cfg, 2, True, "cuda")
+        got = twin(consts, **small)["refined"]["verts"].cpu()
+        cpu = WHMR(cfg, dtype=torch.float32)
+        cpu.load_state_dict(model.state_dict())
+        want = cpu.eval()(body_consts_from_assets(synthetic_smpl_assets(0), device="cpu"),
+                          **{k: v.cpu() for k, v in small.items()})["refined"]["verts"]
+        d_cpu = (got - want).abs().max().item()
+        del twin, cpu
+        ms = _forward_ms(model, consts, _inputs(cfg, BRANCH_FWD_BATCH, False, "cuda"))
+    log(f"branches (b): Graphormer bf16 forward B={BRANCH_FWD_BATCH} (pallas, 600x600 frame): launches {n}; "
+        f"refined verts {tuple(refined.shape)} finite, {d:.3g} m from the last parametric step's at most, "
+        f"max_abs_diff {d_twin:.4g} m against the fp32 twin, {rel_twin:.4g} of the fp32 stage's largest move "
+        f"(tolerance {GRAPHORMER_BF16_RTOL}); the fp32 twin at B=2 {d_cpu:.4g} m from the CPU's (tolerance "
+        f"{GRAPHORMER_CPU_TOL} m); without a frame {BRANCH_FWD_BATCH / ms * 1e3:.1f} crops/s ({ms:.2f} ms a forward)")
+    check(rel_twin <= GRAPHORMER_BF16_RTOL, f"the Graphormer bf16 refined mesh differs from fp32 by {d_twin} m, "
+          f"{rel_twin} of the stage's move")
+    check(d_cpu <= GRAPHORMER_CPU_TOL, f"the Graphormer fp32 refined mesh differs from the CPU's by {d_cpu} m")
+
+    tcfg = cfg.with_overrides(**{"vit.attn_impl": "einsum"})
+    twin = WHMR(tcfg, dtype=torch.bfloat16)
+    twin.load_state_dict(model.state_dict())
+    del model
+    twin.cuda()
+    batch = _branch_batch(tcfg, consts)
+    state = ts.create_train_state(tcfg, twin)
+    graph0 = {k: p.detach().clone() for k, p in state.params.items() if k.startswith("transformer.")}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    reset_launches()
+    history = _steps(tcfg, twin, state, consts, batch, g, rc, BRANCH_STEPS)
+    launches["graphormer steps"] = n = read_launches()
+    check(n["rasterizer"] == BRANCH_STEPS and n["attention"] == n["fused_attention"] == 0,
+          f"Graphormer steps: launches {n}, want K2 once a step")
+    _check_metrics(history, "Graphormer")
+    m = history[-1]
+    check("loss_regr_pose_4" not in m and "loss_cam_4" not in m and "loss_shape_4" in m,
+          f"the Graphormer stage's losses: {sorted(k for k in m if k.endswith('_4'))}")
+    # the key biases' gradients vanish in exact arithmetic (a per-query shift
+    # the softmax removes)
+    still = [k for k in graph0 if torch.equal(graph0[k], state.params[k]) and not k.endswith("self.key.bias")]
+    check(not still, f"Graphormer parameters that did not move: {still[:5]}")
+    ms = _step_ms(tcfg, twin, state, consts, batch, g, rc)
+    log(f"branches (b): Graphormer {BRANCH_STEPS} train steps B={tcfg.train.batch_size} bf16: launches {n}; losses "
+        f"{[round(h['loss'].item(), 3) for h in history]}, loss_shape_4 {m['loss_shape_4'].item():.4g}, no parameter "
+        f"losses on stage 4; all {len(graph0)} Graphormer tensors moved but the key biases; "
+        f"{ms:.2f} ms a step ({tcfg.train.batch_size / ms * 1e3:.1f} crops/s)")
+
+
+def branch_res50(rc, launches):
+    """(a) the res50 backbone: the bf16 forward at B=48 against its fp32
+    twin, and 3 train steps at B=64 with the GT render."""
+    cfg = WHMRConfig().with_overrides(**{"pymaf.backbone": "res50", "pymaf.dp_heatmap_size": (64, 64)})
+    model, consts = build_model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    inputs = _inputs(cfg, BRANCH_FWD_BATCH, True, "cuda")
+    twin = WHMR(cfg, dtype=torch.float32)
+    twin.load_state_dict(model.state_dict())
+    twin.cuda().eval()
+    with torch.inference_mode():
+        model(consts, **inputs)
+        reset_launches()
+        out = _verts(model(consts, **inputs))
+        torch.cuda.synchronize()
+        launches["res50 forward"] = n = read_launches()
+        check(not any(n.values()), f"the res50 forward launched a kernel: {n}")
+        for name, v in zip(("verts", "global_verts"), out):
+            check(v.shape == (BRANCH_FWD_BATCH, 6890, 3) and bool(torch.isfinite(v).all()), f"res50 {name}")
+        ref = _verts(twin(consts, **inputs))
+        d = max((a.float() - b.float()).abs().max().item() for a, b in zip(out, ref))
+        ms = _forward_ms(model, consts, _inputs(cfg, BRANCH_FWD_BATCH, False, "cuda"))
+    log(f"branches (a): res50 bf16 forward B={BRANCH_FWD_BATCH} (256x256 crops, 600x600 frame): vertices "
+        f"max_abs_diff {d:.4g} m against the fp32 twin (tolerance {RES50_VERTS_TOL} m); without a frame "
+        f"{BRANCH_FWD_BATCH / ms * 1e3:.1f} crops/s ({ms:.2f} ms a forward)")
+    check(d <= RES50_VERTS_TOL, f"the res50 bf16 forward differs from fp32 by {d} m")
+
+    batch = _branch_batch(cfg, consts)
+    # K2 at the res50 render (the whole 64x64 map, no ViT slice) against
+    # its plain version on this batch.
+    vp, vz, attrs, res, origin = train_raster_inputs(cfg, consts, rc, batch)
+    check(res == (64, 64) and origin == (0.0, 0.0), f"the res50 render window {res} at {origin}")
+    got = k2.rasterize_kernel(vp, vz, attrs, rc.faces, resolution=res, origin=origin)
+    torch.cuda.synchronize()
+    err = _same_render(got, k2.rasterize_kernel_reference(vp, vz, attrs, rc.faces, resolution=res, origin=origin),
+                       "res50 render")
+    log(f"branches (a): K2 at the res50 train render (B={vp.shape[0]}, {res[0]}x{res[1]} at {origin}): equal mask "
+        f"and zbuf, attrs max_abs_err {err:.3g}; foreground {got.mask.float().mean().item():.3f} of the pixels")
+    twin.train()
+    twin_state = ts.create_train_state(cfg, twin)
+    _, twin_losses = ts._microbatch_grads(cfg, twin, twin_state, consts, batch,
+                                          torch.Generator(device="cuda").manual_seed(1), rc)
+    loss32 = twin_losses["loss"].item()
+    del twin, twin_state, twin_losses
+    torch.cuda.empty_cache()
+    state = ts.create_train_state(cfg, model)
+    params0 = {k: p.detach().clone() for k, p in state.params.items()}
+    stats0 = {k: b.clone() for k, b in state.batch_stats.items()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    reset_launches()
+    history = _steps(cfg, model, state, consts, batch, g, rc, BRANCH_STEPS)
+    launches["res50 steps"] = n = read_launches()
+    check(n["rasterizer"] == BRANCH_STEPS and n["attention"] == n["fused_attention"] == 0,
+          f"res50 steps: launches {n}, want K2 once a step")
+    _check_metrics(history, "res50")
+    still = [k for k in state.params if torch.equal(params0[k], state.params[k])]
+    reached = [k for k in still if not k.startswith(UNREACHED)]
+    check(not reached, f"res50: parameters the loss reaches did not move: {reached[:5]}")
+    stuck = [k for k in state.batch_stats if torch.equal(stats0[k], state.batch_stats[k]) and not k.startswith("cam_model.")]
+    check(not stuck, f"res50: BatchNorm buffers that did not move: {stuck[:5]}")
+    loss16 = history[0]["loss"].item()
+    rel = abs(loss16 - loss32) / abs(loss32)
+    ms = _step_ms(cfg, model, state, consts, batch, g, rc)
+    log(f"branches (a): res50 {BRANCH_STEPS} train steps B={cfg.train.batch_size} bf16 (GT render 64x64): launches "
+        f"{n}; losses {[round(h['loss'].item(), 3) for h in history]}; {len(state.params) - len(still)} of "
+        f"{len(state.params)} parameter tensors moved (the rest under {', '.join(p[:-1] for p in UNREACHED)}); step 1 "
+        f"loss bf16 {loss16:.6g} vs fp32 twin {loss32:.6g}: relative {rel:.3g} (tolerance {RES50_LOSS_RTOL}); "
+        f"{ms:.2f} ms a step ({cfg.train.batch_size / ms * 1e3:.1f} crops/s)")
+    check(rel <= RES50_LOSS_RTOL, f"res50: step 1's bf16 loss differs from the fp32 twin's by {rel} relative")
+
+
+def _eval_direct(args, regressor, paths, cfg):
+    """run_evaluation on the model whmr-eval loads for `args`, over the
+    metric protocol's batches."""
+    model, consts, _ = eval_cli.load_model_state(args, cfg)
+    ds = NpzDataset(cfg, paths["npz"], paths["img_dir"], is_train=False)
+
+    def batches():
+        for hb in BatchLoader(ds, CLI_EVAL_BATCH, shuffle=False, drop_last=False):
+            b, _ = eval_cli.device_eval_batch(hb, extra_keys=("pose", "betas", "gender", "global_pose"), device="cuda")
+            b["valid"] = torch.from_numpy(hb["has_smpl"]).cuda()
+            yield b
+
+    return evaluate_module.run_evaluation(cfg, model, consts, batches(), log_every=0, regressor=regressor)
+
+
+def branch_hmr(root, paths, launches):
+    """(c) whmr-train --regressor hmr, 3 steps of B=64 on phase_cli's
+    dataset, then whmr-eval --regressor hmr on its checkpoint against
+    run_evaluation(regressor="hmr")."""
+    argv = ["--train_npz", paths["npz"], "--img_dir", paths["img_dir"], "--log_dir", str(root), "--name", "hmr",
+            "--regressor", "hmr", "--bf16", "--batch_size", str(CLI_TRAIN_BATCH), "--num_epochs", "1",
+            "--steps_per_epoch", str(BRANCH_STEPS), "--log_every", "1", "--device", "cuda"]
+    sigterm = signal.getsignal(signal.SIGTERM)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(trainer_module, "Trainer", _TimedTrainer))
+        stack.callback(signal.signal, signal.SIGTERM, sigterm)
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches["whmr-train hmr"] = n = read_launches()
+    check(type(trainer.model).__name__ == "HMR" and trainer.state.step == BRANCH_STEPS,
+          f"whmr-train --regressor hmr: {type(trainer.model).__name__} at step {trainer.state.step}")
+    check(not any(n.values()), f"whmr-train --regressor hmr launched a kernel: {n}")
+    recs = [r for r in _records(trainer.metrics.path) if "loss" in r]
+    check(len(recs) == BRANCH_STEPS and all(np.isfinite(v) for r in recs for k, v in r.items() if k != "time"),
+          f"whmr-train --regressor hmr metric records {recs}")
+    steps = trainer.timer.records.get("step", [])
+    gaps = [(recs[i + 1]["time"] - recs[i]["time"]) * 1e3 for i in range(len(recs) - 1)]
+    log(f"branches (c): whmr-train --regressor hmr --bf16, {BRANCH_STEPS} steps of B={CLI_TRAIN_BATCH}: {train_s:.1f} s "
+        f"in main; launches {n}; losses {[round(r['loss'], 3) for r in recs]}; {np.mean(gaps):.2f} ms a step between "
+        f"metric records {[round(x, 2) for x in gaps]} (host clock, each with a metric read-back); host ms of the "
+        f"step span {[round(x * 1e3, 1) for x in steps]}")
+    del trainer
+    _TimedTrainer.last = None
+    torch.cuda.empty_cache()
+
+    common = ["--checkpoint", str(root / "hmr" / "checkpoints"), "--dataset_npz", paths["npz"], "--img_dir",
+              paths["img_dir"], "--batch_size", str(CLI_EVAL_BATCH), "--regressor", "hmr", "--device", "cuda"]
+    loop_s = {}
+    with mock.patch.object(evaluate_module, "run_evaluation", _timed(evaluate_module, "run_evaluation", loop_s)):
+        reset_launches()
+        got = eval_cli.main(common)
+        torch.cuda.synchronize()
+        launches["whmr-eval hmr"] = n = read_launches()
+    check(not any(n.values()), f"whmr-eval --regressor hmr launched a kernel: {n}")
+    want = _eval_direct(eval_cli.build_parser().parse_args(common), "hmr", paths, WHMRConfig())
+    for k in ("pve", "mpjpe", "pa_mpjpe"):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        check(got["count"] == CLI_IMAGES and rel <= CLI_METRIC_RTOL,
+              f"whmr-eval --regressor hmr {k} {got[k]} vs run_evaluation's {want[k]}: relative {rel}")
+    log(f"branches (c): whmr-eval --regressor hmr over {CLI_IMAGES} crops (fp32, B={CLI_EVAL_BATCH}): "
+        f"{CLI_IMAGES / loop_s['run_evaluation']:.1f} crops/s in the protocol's loop; launches {n}; PVE "
+        f"{got['pve']:.3f}, MPJPE {got['mpjpe']:.3f}, PA-MPJPE {got['pa_mpjpe']:.3f} mm, equal to "
+        f"run_evaluation(regressor='hmr') within {CLI_METRIC_RTOL} relative")
+
+
+def branch_convert(root, paths, cli_metric, launches):
+    """(e) phase_cli's weights as a reference {"model": state_dict} .pt ->
+    whmr-convert --strict -> whmr-eval, against phase_cli's metric."""
+    payload = CheckpointManager(str(root / "train" / "checkpoints")).restore()
+    sd = {"module." + k: v for k, v in {**payload["params"], **payload["batch_stats"]}.items()}
+    sd["points_grid"] = torch.zeros(1, 2, 63)  # a reference constant the conversion drops
+    ref = root / "reference.pt"
+    torch.save({"model": sd}, ref)
+    n_params = len(payload["params"])
+    del payload, sd
+    t0 = time.perf_counter()
+    out = root / "converted"
+    report = convert_cli.main(["--torch_ckpt", str(ref), "--out", str(out), "--strict", "--device", "cuda"])
+    convert_s = time.perf_counter() - t0
+    check(report["params"]["matched"] == n_params and not report["unrecognized"],
+          f"whmr-convert matched {report['params']['matched']} of {n_params} parameters")
+    reset_launches()
+    got = eval_cli.main(["--checkpoint", str(out), "--dataset_npz", paths["npz"], "--img_dir", paths["img_dir"],
+                         "--batch_size", str(CLI_EVAL_BATCH), "--device", "cuda", "--misc", "vit.attn_impl", "pallas"])
+    torch.cuda.synchronize()
+    launches["whmr-eval converted"] = n = read_launches()
+    batches = -(-CLI_IMAGES // CLI_EVAL_BATCH)
+    check(n["attention"] == n["attention.mma"] == 12 * batches and n["rasterizer"] == 0,
+          f"whmr-eval of the converted checkpoint: launches {n}")
+    for k in ("pve", "mpjpe", "pa_mpjpe"):
+        rel = abs(got[k] - cli_metric[k]) / abs(cli_metric[k])
+        check(rel <= CLI_METRIC_RTOL, f"whmr-eval of the converted checkpoint: {k} {got[k]} vs phase_cli's "
+              f"{cli_metric[k]}: relative {rel}")
+    log(f"branches (e): whmr-convert --strict of a {ref.stat().st_size / 1e9:.2f} GB reference .pt: "
+        f"{report['params']['matched']} parameters (+{report['batch_stats']['matched']} BatchNorm statistics) matched, "
+        f"nothing unrecognized or mismatched, {convert_s:.1f} s with the template model's build; whmr-eval on it: PVE "
+        f"{got['pve']:.3f}, MPJPE {got['mpjpe']:.3f}, PA-MPJPE {got['pa_mpjpe']:.3f} mm, equal to phase_cli's within "
+        f"{CLI_METRIC_RTOL} relative; launches {n}")
+
+
+def phase_branches(root, paths, cli_metric):
+    """The remaining model branches at full width, on phase_cli's dataset
+    and checkpoint under `root`: (f) the attention formulations and (d)
+    fused Adam on ViT-B, (b) the Graphormer model, (a) the res50 backbone,
+    (c) the HMR baseline through whmr-train and whmr-eval, (e)
+    whmr-convert. Returns the launches of each run."""
+    launches, secs = {}, {}
+    rc = build_render_consts(synthetic_smpl_assets(0), device="cuda")
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    consts = timed("f, d", branch_attention_and_fused_adam, rc, launches)
+    timed("b", branch_graphormer, consts, rc, launches)
+    timed("a", branch_res50, rc, launches)
+    timed("c", branch_hmr, root, paths, launches)
+    timed("e", branch_convert, root, paths, cli_metric, launches)
+    log("branches: seconds by run " + "; ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return launches
+
+
 def main():
     smi = phase_device()
     k2_ptxas = phase_build()
@@ -2089,6 +2532,9 @@ def main():
         t0 = time.perf_counter()
         serve_launches = phase_serve(root, paths, cli_metric)
         log(f"serve: phase_serve took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        branch_launches = phase_branches(root, paths, cli_metric)
+        log(f"branches: phase_branches took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # K3 runs on no path: its count is the forwards', the train steps' and
@@ -2100,7 +2546,7 @@ def main():
     # whmr-train's K2) and the serving path's (K1 on tensor cores in every
     # export check, server, eval, demo and video run), each read over its
     # run; K3's, checked to be 0.
-    runs = list(cli_launches.values()) + par_launches + list(serve_launches.values())
+    runs = list(cli_launches.values()) + par_launches + list(serve_launches.values()) + list(branch_launches.values())
     for k in kernels:
         k["launches"] += sum(n[k["name"]] for n in runs)
         if k["mma_launches"] is not None:

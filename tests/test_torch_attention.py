@@ -124,10 +124,44 @@ def test_attention_module_matches_flax(impl):
     np.testing.assert_allclose(n(got), n(want), atol=2e-5)
 
 
+# The five formulations are ported now: the cases keep the ids they had
+# while they raised; each builds, and an unknown name still raises.
 @pytest.mark.parametrize("impl", ["split", "bf16sm", "bhnd", "bhnd_bf16sm", "xla_dpa", "nope"])
 def test_unported_impls_raise(impl):
-    with pytest.raises(ValueError, match="not ported yet" if impl != "nope" else "unknown"):
-        tlayers.Attention(64, 4, impl=impl)
+    if impl == "nope":
+        with pytest.raises(ValueError, match="unknown"):
+            tlayers.Attention(64, 4, impl=impl)
+    else:
+        assert tlayers.Attention(64, 4, impl=impl).impl == impl
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["split", "bf16sm", "bhnd", "bhnd_bf16sm", "xla_dpa"])
+def test_attention_formulations_match_flax(impl, dtype):
+    """whmr_tpu's other formulations (layers.py:167-196; "xla_dpa" is
+    `jax.nn.dot_product_attention`, here `scaled_dot_product_attention`)
+    in fp32 (atol 2e-5) and in bf16 on bf16 inputs (within one bf16 ulp of
+    the output's largest element: the compute-dtype softmaxes and SDPA
+    round in other places than XLA)."""
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 24, 64).astype(np.float32)
+    flax_attn = jlayers.Attention(num_heads=4, impl=impl, dtype=jdt)
+    variables = flax_attn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = n(flax_attn.apply(variables, jnp.asarray(x, jdt)))
+    port = tlayers.Attention(64, 4, impl=impl, dtype=tdt)
+    p = variables["params"]
+    port.load_state_dict({
+        "qkv.weight": t(linear_from_flax(p["qkv"]["kernel"])),
+        "qkv.bias": t(p["qkv"]["bias"]),
+        "proj.weight": t(linear_from_flax(p["proj"]["kernel"])),
+        "proj.bias": t(p["proj"]["bias"]),
+    })
+    with torch.no_grad():
+        got = port(t(x).to(tdt))
+    assert got.dtype == tdt
+    atol = 2e-5 if dtype == "float32" else 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(n(got), want, atol=atol, rtol=0)
 
 
 

@@ -270,7 +270,10 @@ class TestTrainArguments:
     @pytest.mark.parametrize("flags,error,match", [
         pytest.param(["--model_parallel", "2"], RuntimeError, "process group", id="flags0-slice 5"),
         pytest.param(["--fsdp"], RuntimeError, "process group", id="flags1-slice 5"),
-        pytest.param(["--regressor", "hmr"], NotImplementedError, "slice 6", id="flags2-slice 6"),
+        # the HMR baseline is ported (test_torch_hmr_trainer.py); it refuses
+        # gradient accumulation, as whmr_tpu's does
+        pytest.param(["--regressor", "hmr", "--grad_accum", "2"], ValueError, "not supported with --regressor hmr",
+                     id="flags2-slice 6"),
     ])
     def test_later_slices_raise(self, runs, tmp_path, flags, error, match):
         with pytest.raises(error, match=match):
@@ -306,7 +309,10 @@ class TestEvalGuards:
         # ported here: outside torchrun --data_parallel names the launcher
         pytest.param(["--checkpoint", "CKPT", "--data_parallel", "2"], SystemExit, "under torchrun",
                      id="flags3-NotImplementedError-slice 5"),
-        (["--checkpoint", "CKPT", "--regressor", "hmr"], NotImplementedError, "slice 6"),
+        # --regressor hmr is ported: a WHMR checkpoint does not load into
+        # the HMR model (the case keeps its id)
+        pytest.param(["--checkpoint", "CKPT", "--regressor", "hmr"], ValueError, "does not match the requested model",
+                     id="flags4-NotImplementedError-slice 6"),
         (["--checkpoint", "CKPT", "--eval_parts"], SystemExit, "--parts_dir"),
         (["--checkpoint", "CKPT", "--coco_ap"], SystemExit, "--coco_gt"),
         (["--checkpoint", "ORBAX"], SystemExit, "cannot be read without orbax"),

@@ -101,6 +101,8 @@ def test_port_imports_no_jax_nor_whmr_tpu(tmp_path):
         "whmr_tpu_torch/inference/agora.py", "whmr_tpu_torch/data/coco.py", "whmr_tpu_torch/data/tcmr.py",
         "whmr_tpu_torch/data/fits_dict.py", "whmr_tpu_torch/data/data_cli.py",
         "whmr_tpu_torch/parallel/__init__.py", "whmr_tpu_torch/parallel/mesh.py",
+        "whmr_tpu_torch/models/graphormer.py", "whmr_tpu_torch/models/hmr.py",
+        "whmr_tpu_torch/training/optim.py", "whmr_tpu_torch/utils/convert_cli.py",
     }
     for f in files:
         bad = _forbidden_imports(f)

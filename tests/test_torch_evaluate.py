@@ -142,7 +142,8 @@ def test_run_evaluation_matches_whmr_tpu(carried, tmp_path, mapper):
 def test_eval_step_guards():
     model, _ = twhmr.build_model(ttesting.tiny_config(), dtype=torch.float32, device="cpu")
     cfg = ttesting.tiny_config()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # regressor="hmr" is ported (test_torch_hmr.py): it scores an HMR model only
+    with pytest.raises(ValueError, match="does not score a WHMR model"):
         run_evaluation(cfg, model, None, [], regressor="hmr")
     # data-parallel evaluation is ported: its mesh needs a process group
     with pytest.raises(RuntimeError, match="process group"):

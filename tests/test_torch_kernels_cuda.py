@@ -223,6 +223,24 @@ def test_rasterizer_kernel_gt_render(cuda_device, scale):
     assert got.mask.all() if scale > 5 else not got.mask.all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.9, 7.8])
+def test_rasterizer_kernel_res50_render(cuda_device, scale):
+    """The res50 model's train render (`pymaf.dp_heatmap_size` (64, 64), no
+    ViT slice): the whole 64x64 map at origin (0, 0)."""
+    rc = build_render_consts(synthetic_smpl_assets(0), device=cuda_device)
+    g = np.random.RandomState(2)
+    verts = torch.tensor(synthetic_smpl_assets(0).v_template[None] + 0.02 * g.randn(4, 6890, 3),
+                         dtype=torch.float32, device=cuda_device)
+    cam = torch.tensor([[scale, -0.02, 0.03]] * 4, dtype=torch.float32, device=cuda_device)
+    vp, vz, attrs, res, origin = raster_inputs(rc, verts, cam, heatmap_size=(64, 64), vitpose_slice=False)
+    assert res == (64, 64) and origin == (0.0, 0.0)
+    got = k2.rasterize_kernel(vp, vz, attrs, rc.faces, resolution=res, origin=origin)
+    torch.cuda.synchronize()
+    _check_k2(got, k2.rasterize_kernel_reference(vp, vz, attrs, rc.faces, resolution=res, origin=origin))
+    assert got.mask.any()
+
+
 def make_covering_case(n_faces=3000, seed=0):
     """Large triangles that each cover the whole 40x56 window at origin
     (2, 3): every face's bbox holds every pixel centre, so every face has

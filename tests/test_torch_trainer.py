@@ -192,8 +192,10 @@ def test_grad_accum_must_divide_the_batch(tmp_path):
     # the sharded trainer is ported: it needs a process group
     with pytest.raises(RuntimeError, match="process group"):
         _trainer(tmp_path / "bad", fsdp=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        _trainer(tmp_path / "bad", regressor="hmr")
+    # the HMR baseline is ported (test_torch_hmr_trainer.py); it refuses
+    # gradient accumulation
+    with pytest.raises(ValueError, match="not supported with --regressor hmr"):
+        _trainer(tmp_path / "bad", tiny_config().with_overrides(**{"train.grad_accum": 2}), regressor="hmr")
 
 
 def test_validate_fn_glue_consumes_global_pose(tmp_path):

@@ -115,11 +115,14 @@ def test_bf16_forward_is_close_to_fp32(carried):
 
 
 def test_unported_options_raise():
+    # grph_on and the res50 backbone are ported (test_torch_graphormer.py,
+    # test_torch_res50.py): they build; an unknown backbone raises
     cfg = ttesting.tiny_config()
-    with pytest.raises(NotImplementedError, match="Graphormer"):
-        twhmr.WHMR(cfg.with_overrides(**{"pymaf.grph_on": True}))
-    with pytest.raises(NotImplementedError, match="res50"):
-        twhmr.WHMR(cfg.with_overrides(**{"pymaf.backbone": "res50"}))
+    assert isinstance(twhmr.WHMR(cfg.with_overrides(**{"pymaf.grph_on": True})).transformer[0],
+                      twhmr.GraphormerBodyNetwork)
+    assert isinstance(twhmr.WHMR(ttesting.tiny_config("res50")).feature_extractor, twhmr.PoseResNetEncoder)
+    with pytest.raises(ValueError, match="backbone"):
+        twhmr.WHMR(cfg.with_overrides(**{"pymaf.backbone": "res101"}))
     model, consts = twhmr.build_model(cfg, dtype=torch.float32, device="cpu")
     inp = {k: t(v) for k, v in make_example_inputs(tiny_config(), 1).items()}
     # The train-mode forward is ported; its flag must match the module's mode.

@@ -117,3 +117,58 @@ def save_port_checkpoint(sd, path):
         "batch_stats": {k: v for k, v in sd.items() if k.endswith(stats)},
     })
     return str(path)
+
+
+_DECODER_NAMES = ("decpose", "decshape", "deccam", "decrot")
+
+
+def numpy_variables(init, *args, seed=0):
+    """flax variables of the shapes `init(*args)` would make, drawn with
+    numpy instead of compiled: lecun-normal kernels (xavier-like 0.01 for
+    the residual decoders), small random biases and norm offsets, norm
+    scales near 1, 0.02 normal position embeddings, random BatchNorm
+    statistics. `jax.eval_shape` traces the init without compiling it, so
+    a whole model's variables cost seconds, not a compile."""
+    shapes = jax.eval_shape(init, *args)
+    rng = np.random.RandomState(seed)
+    out = {}
+    for coll, tree in shapes.items():
+        flat = traverse_util.flatten_dict(tree)
+        for path, leaf in flat.items():
+            shape, name = leaf.shape, path[-1]
+            if coll == "batch_stats":
+                v = rng.randn(*shape) * 0.1 if name == "mean" else rng.uniform(0.5, 1.5, shape)
+            elif name == "kernel":
+                fan_in = int(np.prod(shape[:-1]))
+                gain = 0.01 if any(p in _DECODER_NAMES for p in path) else 1.0
+                v = rng.randn(*shape) * gain / np.sqrt(fan_in)
+            elif name == "scale":
+                v = 1.0 + 0.1 * rng.randn(*shape)
+            elif name in ("pos_embed", "position_embeddings"):
+                v = 0.02 * rng.randn(*shape)
+            else:
+                v = 0.01 * rng.randn(*shape)
+            flat[path] = v.astype(np.float32)
+        out[coll] = traverse_util.unflatten_dict(flat)
+    return out
+
+
+def to_float64(tree):
+    """BodyConsts (or any nest of NamedTuples, dicts and tensors) with every
+    floating tensor in float64: the whole of a float64 parity check."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: to_float64(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_float64(v) for v in tree))
+    return tree
+
+
+def float64_module(module):
+    """`module` in float64, parameters and compute dtype alike."""
+    module.double()
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return module

@@ -39,8 +39,9 @@ Protocol variants carried over from the reference:
   rank 0 prints them and writes `--result_file`. `--eval_parts`,
   `--coco_ap` and `--bundle` refuse it, as in whmr_tpu.
 
-Not ported yet, and raising NotImplementedError: `--regressor hmr`
-(slice 6).
+- `--regressor hmr` scores an HMR-baseline checkpoint (`whmr-train
+  --regressor hmr`) on its camera-frame mesh (eval.py:174-176), the metric
+  protocol only.
 """
 
 from __future__ import annotations
@@ -172,13 +173,14 @@ def load_model_state(args, cfg):
     its own weights: where whmr_tpu returns `variables`, the model carries
     them."""
     from whmr_tpu_torch.data.assets import get_assets
-    from whmr_tpu_torch.models.whmr import build_model
+    from whmr_tpu_torch.models.whmr import build_hmr, build_model
 
-    if getattr(args, "regressor", "pymaf_net") != "pymaf_net":
-        raise NotImplementedError(f"--regressor {args.regressor} is not ported yet (slice 6)")
     device = resolve_device(getattr(args, "device", "cuda"))
     assets = get_assets(args.data_dir)
-    model, consts = build_model(cfg, dtype=torch.float32, device=device, seed=0, assets=assets)
+    if getattr(args, "regressor", "pymaf_net") == "hmr":
+        model, consts = build_hmr(dtype=torch.float32, device=device, seed=0, assets=assets)
+    else:
+        model, consts = build_model(cfg, dtype=torch.float32, device=device, seed=0, assets=assets)
     restore_checkpoint(model, args.checkpoint)
     return model.eval(), consts, assets
 
@@ -285,6 +287,9 @@ def main(argv=None):
         )
     ds = NpzDataset(cfg, args.dataset_npz, args.img_dir, is_train=False)
     # The checks of the arguments and labels come before the model is built.
+    if args.regressor == "hmr" and (args.eval_parts or args.coco_ap):
+        raise SystemExit("--eval_parts/--coco_ap score the WHMR forward; --regressor hmr "
+                         "runs the metric protocol only")
     if args.eval_parts and not args.parts_dir:
         raise SystemExit("--eval_parts requires --parts_dir")
     if args.coco_ap and not args.coco_gt:

@@ -9,8 +9,9 @@ boundary or the end, so the host reads them back once, not once a batch.
 
 The port's model holds its own weights, so where whmr_tpu passes
 `variables` to the eval step, the port passes the model (None when a
-`forward_override`, an exported bundle's program, predicts instead). The
-HMR baseline (`regressor="hmr"`, slice 6) is not ported yet and raises.
+`forward_override`, an exported bundle's program, predicts instead). With
+`regressor="hmr"` the model is the HMR baseline, scored on its
+camera-frame mesh (reference eval.py:174-176).
 
 Data-parallel evaluation (`mesh=`): every rank is handed the same batches
 (as whmr_tpu's device_put of a host batch) and scores its rows of each,
@@ -31,12 +32,13 @@ import torch.distributed as dist
 
 from whmr_tpu_torch.config import WHMRConfig
 from whmr_tpu_torch.data.assets import H36M_TO_J14, H36M_TO_J17
+from whmr_tpu_torch.models.hmr import HMR
 from whmr_tpu_torch.models.regressor import BodyConsts
 from whmr_tpu_torch.models.smpl import select_h36m_joints, smpl_forward, vertices2joints
 from whmr_tpu_torch.models.whmr import WHMR
 from whmr_tpu_torch.ops.procrustes import batch_compute_similarity_transform
 from whmr_tpu_torch.parallel.mesh import axis_index, axis_size, data_group, is_main
-from whmr_tpu_torch.ops.rotation import batch_rodrigues
+from whmr_tpu_torch.ops.rotation import batch_rodrigues, rotmat_to_angle_axis
 
 
 @dataclasses.dataclass
@@ -63,9 +65,12 @@ class EvalMetrics:
         }
 
 
-def _not_ported(regressor):
-    if regressor != "pymaf_net":
-        raise NotImplementedError(f"regressor={regressor!r} is not ported yet (slice 6)")
+def _check_model(model, regressor: str, forward_override) -> None:
+    """regressor="hmr" scores an HMR model, "pymaf_net" a WHMR one."""
+    if regressor not in ("pymaf_net", "hmr"):
+        raise ValueError(f"regressor must be 'pymaf_net' or 'hmr', got {regressor!r}")
+    if forward_override is None and isinstance(model, HMR) != (regressor == "hmr"):
+        raise ValueError(f"regressor={regressor!r} does not score a {type(model).__name__} model")
 
 
 def make_eval_step(
@@ -101,13 +106,21 @@ def make_eval_step(
     Procrustes-aligned pred, pose/betas/cam. The step scores the rows it
     is given: `run_evaluation(mesh=)` splits them over the data ranks.
     """
-    _not_ported(regressor)
+    _check_model(model, regressor, forward_override)
     mapper = H36M_TO_J17 if joint_mapper == "j17" else H36M_TO_J14
 
     @torch.no_grad()
     def step(consts: BodyConsts, batch: Dict[str, torch.Tensor]):
         if forward_override is not None:
             pred_verts, last_params = forward_override(consts, batch)
+        elif regressor == "hmr":
+            # HMR baseline (reference eval.py:174-176): the camera-frame mesh
+            # straight from (rotmat, betas); the axis-angle pose for the
+            # result file (eval.py:312-319).
+            rotmat, betas, cam = (v.float() for v in model(consts, batch["img"], train=False))
+            pred_verts = smpl_forward(consts.smpl, betas, rotmat).vertices
+            pose_aa = rotmat_to_angle_axis(rotmat.reshape(-1, 3, 3)).reshape(-1, 72)
+            last_params = {"pose": pose_aa, "pred_shape": betas, "pred_cam": cam}
         else:
             preds = model(
                 consts,

@@ -78,7 +78,8 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.to(torch.promote_types(x.dtype, torch.float32)), self.normalized_shape,
+                         self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -109,7 +110,8 @@ class _FP32BatchNorm:
     data_group = None
 
     def forward(self, x):
-        xf = x.float()
+        # at least fp32: a float64 model (a test's) keeps float64
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             y = F.batch_norm(
                 xf, self.running_mean, self.running_var, self.weight, self.bias,
@@ -240,18 +242,34 @@ class MLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
-# whmr_tpu's other Attention.impl names; each waits for its port (ROADMAP.md).
-# "xla_dpa" would map onto a library attention kernel, which the port does
-# not call.
-UNPORTED_ATTN_IMPLS = ("split", "bf16sm", "bhnd", "bhnd_bf16sm", "xla_dpa")
+# whmr_tpu's Attention.impl names (layers.py:140-198), each resolved to the
+# body that computes it here. whmr_tpu's "split" and "bhnd" variants only
+# change the layout XLA sees on the TPU (layers.py:150-151); in PyTorch they
+# are the same ops as "einsum" and "bf16sm". "pallas" is the hand-written
+# kernel K1. The formulations are held against whmr_tpu's in
+# tests/test_torch_attention.py.
+ATTN_BODIES = {
+    "einsum": "fp32_softmax", "split": "fp32_softmax", "bhnd": "fp32_softmax",
+    "bf16sm": "dtype_softmax", "bhnd_bf16sm": "dtype_softmax",
+    "xla_dpa": "sdpa", "pallas": "pallas",
+}
 
 
 class Attention(nn.Module):
     """Fused-qkv multi-head self-attention (keys qkv, proj).
 
-    impl "einsum": whmr_tpu's default formulation in plain torch (q scaled in
-    the compute dtype, fp32 softmax). impl "pallas": the hand-written CUDA
-    kernel K1 (ops/attention.py), with whmr_tpu's kernel numerics.
+    `impl` names whmr_tpu's formulation; it runs one of four bodies
+    (`ATTN_BODIES`):
+    - "fp32_softmax" ("einsum", whmr_tpu's default; "split", "bhnd"):
+      scores from the (B, N, H, D) qkv slices, q scaled in the compute
+      dtype, fp32 softmax.
+    - "dtype_softmax" ("bf16sm", "bhnd_bf16sm"): the softmax in the compute
+      dtype.
+    - "sdpa" ("xla_dpa"): whmr_tpu's `jax.nn.dot_product_attention`, an XLA
+      composition and not a TPU kernel; here its PyTorch counterpart
+      `scaled_dot_product_attention`.
+    - "pallas": the hand-written CUDA kernel K1 (ops/attention.py), with
+      whmr_tpu's kernel numerics.
 
     Under tensor parallelism (`parallel.shard_params`) `qkv` yields this
     rank's [q_r | k_r | v_r] columns, so the forward runs on the local heads
@@ -261,10 +279,8 @@ class Attention(nn.Module):
 
     def __init__(self, dim, num_heads, qkv_bias=True, dtype=torch.float32, impl="einsum"):
         super().__init__()
-        if impl in UNPORTED_ATTN_IMPLS:
-            raise ValueError(f"attention impl {impl!r} is not ported yet (see ROADMAP.md); use 'einsum' or 'pallas'")
-        if impl not in ("einsum", "pallas"):
-            raise ValueError(f"unknown attention impl {impl!r}")
+        if impl not in ATTN_BODIES:
+            raise ValueError(f"unknown attention impl {impl!r}; one of {tuple(ATTN_BODIES)}")
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.impl = impl
@@ -278,16 +294,20 @@ class Attention(nn.Module):
         heads = qkv.shape[-1] // (3 * head_dim)  # num_heads, or the local heads under TP
         c = heads * head_dim
         qkv = qkv.reshape(b, n, 3, heads, head_dim)
-        if self.impl == "einsum":
-            q, k, v = qkv.unbind(2)  # (B, N, H, D)
-            attn = torch.einsum("bnhd,bmhd->bhnm", q * head_dim**-0.5, k)
-            attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-            out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
-        else:
+        body = ATTN_BODIES[self.impl]
+        if body == "pallas":
             # One copy to (3, B, H, N, D) makes q, k and v each contiguous BHND.
             q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-            out = attention(q, k, v).transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+            out = attention(q, k, v).transpose(1, 2)
+        elif body == "sdpa":
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+            out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+        else:
+            q, k, v = qkv.unbind(2)  # (B, N, H, D)
+            attn = torch.einsum("bnhd,bmhd->bhnm", q * head_dim**-0.5, k)
+            attn = torch.softmax(attn if body == "dtype_softmax" else attn.float(), dim=-1).to(x.dtype)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+        return self.proj(out.reshape(b, n, c))
 
 
 class TransformerBlock(nn.Module):

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from whmr_tpu_torch.data.assets import SMPLAssets
+from whmr_tpu_torch.models.graphormer import build_adjacency
 from whmr_tpu_torch.models.layers import Dropout, Linear
 from whmr_tpu_torch.models.smpl import (
     SMPLParams,
@@ -57,12 +58,15 @@ class BodyConsts(NamedTuple):
     mean_pose: torch.Tensor         # (1, 216) rotmat entries of the mean pose
     mean_shape: torch.Tensor        # (1, 10)
     mean_cam: torch.Tensor          # (1, 3)
-    # Graphormer's 431-vertex adjacency; the Graphormer slice fills it.
+    # The Graphormer GCN's 431-vertex normalised adjacency (reference
+    # data/smpl_431_adjmat_*.pt, _gcnn.py:132-138).
     adj431: Optional[torch.Tensor] = None
 
 
-def body_consts_from_assets(assets: SMPLAssets, device=None) -> BodyConsts:
-    """The constant bundle in fp32 (mean rot6d -> rotmat as whmr.py:64-65)."""
+def body_consts_from_assets(assets: SMPLAssets, device=None, adjacency_dir: Optional[str] = None) -> BodyConsts:
+    """The constant bundle in fp32 (mean rot6d -> rotmat as whmr.py:64-65);
+    the adjacency from the reference's tensors in `adjacency_dir`, else the
+    ring (`graphormer.build_adjacency`)."""
 
     def t(a, dt=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -77,6 +81,7 @@ def body_consts_from_assets(assets: SMPLAssets, device=None) -> BodyConsts:
         mean_pose=mean_rotmat.reshape(1, NPOSE),
         mean_shape=t(assets.mean_shape).reshape(1, 10),
         mean_cam=t(assets.mean_cam).reshape(1, 3),
+        adj431=t(build_adjacency(assets, adjacency_dir)),
     )
 
 

@@ -8,8 +8,8 @@ over the port's Trainer, NpzDataset and BatchLoader. Run it as
 It trains on the card unless `--device cpu` is given, and raises when there
 is no card; it never falls back. Beside whmr_tpu's parser: `--device`;
 `--bf16` computes in torch.bfloat16; `--profile` writes a torch.profiler
-trace. `--regressor hmr` reaches the port's Trainer, which raises
-NotImplementedError naming its slice.
+trace. `--regressor hmr` trains the HMR baseline (no GT render, no
+`--grad_accum`).
 
 Parallel training runs one process a card under torchrun, which the CLI
 detects by its environment and joins (`parallel.init_distributed`):

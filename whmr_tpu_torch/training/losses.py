@@ -10,8 +10,10 @@ pose/betas MSE on valid-SMPL samples, 2D crop and world keypoints
 (conf-weighted, when kp_2d_w > 0), pelvis-aligned 3D keypoints, per-vertex
 L1 at three mesh scales (l_i > 2 only), the camera depth regulariser and
 the focal-length MSE (focal_supv_on); plus the IUV cross-entropies and
-smooth-L1 U/V of the aux heads and the depth smooth-L1. `hmr_loss` waits
-for the HMR baseline.
+smooth-L1 U/V of the aux heads and the depth smooth-L1. The appended
+Graphormer stage (pymaf.grph_on) is scored on its vertices and keypoints
+only: its rotmat, shape and camera are the last parametric step's, which
+would otherwise be scored twice. `hmr_loss` is the HMR baseline's subset.
 
 Under data parallelism (`group`, the data group) each rank holds its rows
 of the global batch, and the gradients are averaged over the group. A mean
@@ -161,6 +163,39 @@ def depth_loss(pred_depth, gt_depth, has_depth, point_regression_weight: float, 
     return (per * mask).sum() / pred_depth.shape[0] * point_regression_weight * total.clamp(max=1.0)
 
 
+def hmr_loss(
+    cfg: WHMRConfig,
+    pred_rotmat: torch.Tensor,
+    pred_betas: torch.Tensor,
+    pred_cam: torch.Tensor,
+    pred_kp_2d: torch.Tensor,
+    pred_kp_3d: torch.Tensor,
+    batch: Dict[str, torch.Tensor],
+    group=None,
+) -> Dict[str, torch.Tensor]:
+    """The HMR baseline's loss (`--regressor hmr`, whmr_tpu losses.py:174-217):
+    the reference's assembly loop run once (trainer.py:498 `len_loop = 1`)
+    — SMPL parameter MSE, crop-frame 2D keypoints, pelvis-aligned 3D
+    keypoints and the positive-depth camera regulariser; no world, aux,
+    focal or vertex terms. `group` as in `whmr_loss`."""
+    w = cfg.loss
+    n_smpl, n_pose_3d = global_counts([batch["has_smpl"], batch["has_pose_3d"]], group)
+    loss_dict: Dict[str, torch.Tensor] = {}
+    lp, lb = smpl_param_loss(pred_rotmat, pred_betas, batch["pose"], batch["betas"], batch["has_smpl"], n_smpl)
+    loss_dict["loss_regr_pose_0"] = lp * w.pose_w
+    loss_dict["loss_regr_betas_0"] = lb * w.shape_w
+    if w.kp_2d_w > 0:
+        loss_dict["loss_keypoints_0"] = keypoint_loss(
+            pred_kp_2d, batch["keypoints"], w.openpose_train_weight, w.gt_train_weight,
+        ) * w.kp_2d_w
+    loss_dict["loss_keypoints_3d_0"] = keypoint_3d_loss(
+        pred_kp_3d, batch["pose_3d"], batch["has_pose_3d"], n_pose_3d
+    ) * w.kp_3d_w
+    loss_dict["loss_cam_0"] = (torch.exp(-pred_cam[:, 0] * 10) ** 2).mean()
+    loss_dict["loss"] = sum(loss_dict.values())
+    return loss_dict
+
+
 def whmr_loss(
     cfg: WHMRConfig,
     preds: Dict,
@@ -187,10 +222,14 @@ def whmr_loss(
     smpl_out = preds["smpl_out"]
     for l_i in range(1, len(smpl_out)):
         out = smpl_out[l_i]
-        lp, lb = smpl_param_loss(out["rotmat"], out["pred_shape"], batch["pose"], batch["betas"],
-                                 batch["has_smpl"], n_smpl)
-        loss_dict[f"loss_regr_pose_{l_i}"] = lp * w.pose_w
-        loss_dict[f"loss_regr_betas_{l_i}"] = lb * w.shape_w
+        # The appended Graphormer stage carries the last parametric step's
+        # rotmat/shape/cam (whmr_tpu losses.py:253-263).
+        nonparam = cfg.pymaf.grph_on and l_i == len(smpl_out) - 1
+        if not nonparam:
+            lp, lb = smpl_param_loss(out["rotmat"], out["pred_shape"], batch["pose"], batch["betas"],
+                                     batch["has_smpl"], n_smpl)
+            loss_dict[f"loss_regr_pose_{l_i}"] = lp * w.pose_w
+            loss_dict[f"loss_regr_betas_{l_i}"] = lb * w.shape_w
         if w.kp_2d_w > 0:
             loss_dict[f"loss_keypoints_{l_i}"] = keypoint_loss(
                 out["kp_2d"], batch["keypoints"], w.openpose_train_weight, w.gt_train_weight,
@@ -199,7 +238,7 @@ def whmr_loss(
                 out["kp_2d_w"], batch["keypoints_world"], w.openpose_train_weight,
                 w.gt_train_weight, scale=kp_scale,
             ) * w.kp_2d_w
-        if cfg.pymaf.focal_supv_on:
+        if cfg.pymaf.focal_supv_on and not nonparam:
             loss_dict[f"loss_focal_length_{l_i}"] = (
                 ((out["focal_length"] - batch["focal"]) ** 2).mean() * w.focal_weights
             )
@@ -211,7 +250,8 @@ def whmr_loss(
                 name = "verts" if not key else f"{key[1:]}_verts"
                 loss_dict[f"loss_shape{key}_{l_i}"] = vertex_loss(out[name], gt, batch["has_smpl"], n_smpl) * w.vert_w
         # Positive-depth camera regulariser (trainer.py:586-588).
-        loss_dict[f"loss_cam_{l_i}"] = (torch.exp(-out["pred_cam"][:, 0] * 10) ** 2).mean()
+        if not nonparam:
+            loss_dict[f"loss_cam_{l_i}"] = (torch.exp(-out["pred_cam"][:, 0] * 10) ** 2).mean()
 
     if uvia_gt is not None and preds["dp_out"]:
         dp = preds["dp_out"][-1]

@@ -25,7 +25,9 @@ every rank reads the global batch's losses. At one rank the numbers are
 those without a mesh, bit for bit, except that FSDP's reductions may
 round differently.
 
-The HMR baseline's `hmr_train_step` and `fused_adam` wait for later slices.
+`hmr_train_step` is the HMR baseline's step (`regressor="hmr"`): no GT
+render, the `hmr_loss` subset, no gradient accumulation. `train.fused_adam`
+selects the flat-buffer Adam of training/optim.py.
 """
 
 from __future__ import annotations
@@ -48,11 +50,11 @@ from whmr_tpu_torch.parallel.mesh import (
 )
 from whmr_tpu_torch.models.smpl import smpl_forward
 from whmr_tpu_torch.models.whmr import WHMR
-from whmr_tpu_torch.ops.camera import estimate_translation
+from whmr_tpu_torch.ops.camera import estimate_translation, weak_perspective_projection
 from whmr_tpu_torch.ops.iuv import iuv_img2map
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
 from whmr_tpu_torch.training.gt_renderer import RenderConsts, gt_camera_from_cam_t, render_gt_maps
-from whmr_tpu_torch.training.losses import whmr_loss
+from whmr_tpu_torch.training.losses import hmr_loss, whmr_loss
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -141,10 +143,12 @@ def make_optimizer(cfg: WHMRConfig, steps_per_epoch: int = 1) -> Optimizer:
     """Adam at base_lr, decayed by lr_gamma at each epoch of
     lr_decay_epochs (the reference's decay at epoch boundaries,
     core/trainer.py:330-338, keyed by step through `steps_per_epoch`), with
-    global-norm clipping before it when grad_clip_norm > 0."""
+    global-norm clipping before it when grad_clip_norm > 0; with
+    train.fused_adam, the same on flat moment buffers (training/optim.py)."""
+    cls = Optimizer
     if cfg.train.fused_adam:
-        raise NotImplementedError("train.fused_adam is not ported yet (see ROADMAP.md)")
-    return Optimizer(
+        from whmr_tpu_torch.training.optim import FusedAdam as cls
+    return cls(
         cfg.train.base_lr,
         boundaries=[int(e) * int(steps_per_epoch) for e in cfg.train.lr_decay_epochs],
         gamma=cfg.train.lr_gamma,
@@ -194,8 +198,10 @@ class TrainState:
         return self
 
 
-def create_train_state(cfg: WHMRConfig, model: WHMR, steps_per_epoch: int = 1, mesh=None) -> TrainState:
-    """Puts `model` in train mode and wraps its tensors with a fresh Adam.
+def create_train_state(cfg: WHMRConfig, model: torch.nn.Module, steps_per_epoch: int = 1, mesh=None) -> TrainState:
+    """Puts `model` (WHMR, or the HMR baseline for `hmr_train_step`) in
+    train mode and wraps its tensors with a fresh Adam (the fused one under
+    `train.fused_adam`).
     On a `mesh`, call it after `parallel.shard_params`: the moments and EMA
     weights are made like the (sharded) parameters."""
     model.train()
@@ -417,6 +423,35 @@ def train_step_accum(
     metrics = _sync(state, gsum, lsum)
     grads = {k: g * inv for k, g in gsum.items()}
     metrics = {k: v * inv for k, v in metrics.items()}
+    norm = state.grad_norm(list(grads.values()))
+    metrics["grad_norm"] = norm
+    return state.apply_gradients(grads, norm), metrics
+
+
+def hmr_train_step(
+    cfg: WHMRConfig,
+    model,
+    state: TrainState,
+    consts: BodyConsts,
+    batch: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One step of the HMR baseline (whmr_tpu train_step.py:384-414,
+    reference trainer.py:406-409 and the single-pass loss loop at :498-590):
+    the train-mode forward, an SMPL forward of its prediction, the
+    crop-frame projection and `hmr_loss`; the same optimizer, EMA and mesh
+    handling as `train_step`. `state` is `create_train_state` of the HMR
+    model."""
+    _zero_grads(state)
+    rotmat, betas, cam = model(consts, _model_input(batch), train=True, generator=generator)
+    # Geometry in at least fp32, whatever the compute dtype.
+    rotmat, betas, cam = (v.to(torch.promote_types(v.dtype, torch.float32)) for v in (rotmat, betas, cam))
+    joints = smpl_forward(consts.smpl, betas, rotmat).joints
+    kp_2d = weak_perspective_projection(joints, cam, cfg.img_res)
+    losses = hmr_loss(cfg, rotmat, betas, cam, kp_2d, joints, batch, group=data_group(state.mesh))
+    losses["loss"].backward()
+    grads = _take_grads(state)
+    metrics = _sync(state, grads, {k: v.detach() for k, v in losses.items()})
     norm = state.grad_norm(list(grads.values()))
     metrics["grad_norm"] = norm
     return state.apply_gradients(grads, norm), metrics

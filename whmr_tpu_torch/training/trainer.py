@@ -15,8 +15,10 @@ Trainer / `core/base_trainer.py` BaseTrainer) around the port's train step:
 
 The loop decides its log and save cadence from host counters, so the only
 host syncs are the metric read-back at log steps and the checkpoint
-snapshots. The HMR baseline (`regressor="hmr"`) is not ported yet and
-raises.
+snapshots. `regressor="hmr"` trains the HMR baseline (models/hmr.py) with
+`hmr_train_step`: no GT render, no gradient accumulation; its checkpoints
+and resume are those of the WHMR model. `train.fused_adam` is refused
+with FSDP or tensor parallelism, as in whmr_tpu (trainer.py:111-116).
 
 Parallel training (`mesh`, `model_parallel`, `fsdp`, as whmr_tpu's
 Trainer takes them) runs one process a rank on a `torch.distributed`
@@ -66,7 +68,7 @@ import torch.distributed as dist
 from whmr_tpu_torch.config import WHMRConfig
 from whmr_tpu_torch.data.assets import get_assets
 from whmr_tpu_torch.data.loader import device_prefetch, host_tensor
-from whmr_tpu_torch.models.whmr import build_model
+from whmr_tpu_torch.models.whmr import build_hmr, build_model
 from whmr_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
@@ -80,7 +82,14 @@ from whmr_tpu_torch.parallel.mesh import (
     shard_params,
 )
 from whmr_tpu_torch.training.gt_renderer import build_render_consts
-from whmr_tpu_torch.training.train_step import AdamState, create_train_state, train_step, train_step_accum
+from whmr_tpu_torch.training.optim import FusedAdamState
+from whmr_tpu_torch.training.train_step import (
+    AdamState,
+    create_train_state,
+    hmr_train_step,
+    train_step,
+    train_step_accum,
+)
 from whmr_tpu_torch.utils import profiling
 from whmr_tpu_torch.utils.checkpoint import CheckpointManager, missing_checkpoint_message
 from whmr_tpu_torch.utils.convert import is_known_buffer, merge_trees
@@ -133,8 +142,17 @@ class Trainer:
         device=None,
         local_batches: bool = False,
     ):
-        if regressor != "pymaf_net":
-            raise NotImplementedError(f"regressor={regressor!r} is not ported yet (slice 6)")
+        if regressor not in ("pymaf_net", "hmr"):
+            raise ValueError(f"regressor must be 'pymaf_net' or 'hmr', got {regressor!r}")
+        if cfg.train.fused_adam and (fsdp or model_parallel > 1):
+            raise ValueError(
+                "train.fused_adam keeps flat (unsharded) Adam moments and is "
+                "incompatible with FSDP/tensor-parallel optimizer-state "
+                "sharding; disable one of them (training/optim.py)."
+            )
+        if regressor == "hmr" and cfg.train.grad_accum > 1:
+            # whmr_tpu train_step.py:433-436: the baseline fits memory at any batch
+            raise ValueError("--grad_accum is not supported with --regressor hmr")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
@@ -156,7 +174,13 @@ class Trainer:
         self.log_dir = log_dir
         self.regressor = regressor
         assets = get_assets(data_dir)
-        self.model, self.consts = build_model(cfg, dtype=dtype, device=self.device, seed=seed, assets=assets)
+        if regressor == "hmr":
+            # Plain HMR baseline (reference core/train_options.py:19-20,
+            # trainer.py:51-53,406-440): ResNet + rot6d regressor, trained
+            # with the kp2d/kp3d/param/cam loss subset (losses.hmr_loss).
+            self.model, self.consts = build_hmr(dtype=dtype, device=self.device, seed=seed, assets=assets)
+        else:
+            self.model, self.consts = build_model(cfg, dtype=dtype, device=self.device, seed=seed, assets=assets)
         # Real DensePose chart when present (reference
         # densepose_methods.py:17 reads data/UV_data/UV_Processed.mat):
         # annotated uvia_gt samples and rendered GT maps must share one
@@ -171,7 +195,8 @@ class Trainer:
                 print(f"[trainer] DensePose chart: {cand}", flush=True)
         self.render_consts = (
             build_render_consts(assets, densepose_mat=dp_mat, mesh=cfg.pymaf.gt_render_mesh, device=self.device)
-            if aux_rendering and (cfg.pymaf.aux_supv_on or cfg.pymaf.depth_supv_on)
+            if (regressor == "pymaf_net" and aux_rendering
+                and (cfg.pymaf.aux_supv_on or cfg.pymaf.depth_supv_on))
             else None
         )
         if mesh is not None:
@@ -305,8 +330,15 @@ class Trainer:
         self._place(self.state.params, payload["params"])
         self._place(self.state.batch_stats, payload["batch_stats"])
         opt = payload["opt_state"]
-        mu, nu = (shard_opt_state(self.model, opt[m], self.state.params) for m in ("mu", "nu"))
-        self.state.opt_state = AdamState(count=int(opt["count"]), mu=list(mu.values()), nu=list(nu.values()))
+        if isinstance(self.state.opt_state, FusedAdamState):
+            # The moments are views into the flat buffers: copy into them.
+            st = self.state.opt_state
+            for m in ("mu", "nu"):
+                torch._foreach_copy_(getattr(st, m), [opt[m][k] for k in self.state.params])
+            st.count = int(opt["count"])
+        else:
+            mu, nu = (shard_opt_state(self.model, opt[m], self.state.params) for m in ("mu", "nu"))
+            self.state.opt_state = AdamState(count=int(opt["count"]), mu=list(mu.values()), nu=list(nu.values()))
         self.state.step = int(payload["step"])
         if self.ckpt_ema is not None:
             ema = self.ckpt_ema.restore(template=self._weights(self.state.ema_params))
@@ -401,6 +433,8 @@ class Trainer:
 
     # -- train loop ----------------------------------------------------------
     def _step(self, batch):
+        if self.regressor == "hmr":
+            return hmr_train_step(self.cfg, self.model, self.state, self.consts, batch, self.rng)
         fn = train_step_accum if self.accum > 1 else train_step
         return fn(self.cfg, self.model, self.state, self.consts, batch, self.rng, self.render_consts)
 

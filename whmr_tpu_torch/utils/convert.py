@@ -15,6 +15,13 @@ Layout maps, each the exact inverse of whmr_tpu's:
 - BatchNorm:       scale/bias + mean/var -> weight/bias + running_mean/var
                    (num_batches_tracked, a step counter, is set to 0)
 - LayerNorm:       scale/bias            -> weight/bias
+- Graphormer GCN:  lin1/lin2 Dense (in, out) -> GraphLinear W (out, in);
+                   conv_w Dense (in, out)    -> GraphConvolution weight (in, out)
+
+The trees it reads: WHMR's, with either backbone (a `feature_extractor`
+holding the ViT, or the res50 `trunk`) and the Graphormer stage
+(`transformer0`), and the HMR baseline's (`backbone`, `fc1`, `fc2`,
+`dec*`, whose keys are top-level in the port as in the reference).
 
 `KNOWN_BUFFER_PATTERNS` / `is_known_buffer` are a copy of whmr_tpu's
 (`whmr_tpu/utils/convert.py:53-75`): the keys of a reference checkpoint that
@@ -110,7 +117,30 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 out[int(m.group(1))] = v
         return dict(sorted(out.items()))
 
-    if "feature_extractor" in params:
+    def conv_bn(conv_dst, bn_dst, node, stat):
+        put(conv_dst + ".weight", conv_from_flax(node["Conv_0"]["kernel"]))
+        bn(bn_dst, node["BatchNorm_0"], stat["BatchNorm_0"])
+
+    def resnet_trunk(dst, trunk, trunk_stats):
+        """ResNetTrunk's auto-named flax tree (ConvBN_0 the stem,
+        Bottleneck_k the 16 blocks in stage order) -> torchvision names."""
+        conv_bn(dst + "conv1", dst + "bn1", trunk["ConvBN_0"], trunk_stats["ConvBN_0"])
+        k = 0
+        for stage, n_blocks in enumerate(_RESNET50_LAYERS):
+            for b in range(n_blocks):
+                node, stat = trunk[f"Bottleneck_{k}"], trunk_stats[f"Bottleneck_{k}"]
+                pre = f"{dst}layer{stage + 1}.{b}"
+                for j in range(3):
+                    conv_bn(f"{pre}.conv{j + 1}", f"{pre}.bn{j + 1}", node[f"ConvBN_{j}"], stat[f"ConvBN_{j}"])
+                if "ConvBN_3" in node:
+                    conv_bn(f"{pre}.downsample.0", f"{pre}.downsample.1", node["ConvBN_3"], stat["ConvBN_3"])
+                k += 1
+
+    if "trunk" in params.get("feature_extractor", {}):
+        # res50 backbone: the PoseResNet encoder's torchvision names.
+        resnet_trunk("feature_extractor.", params["feature_extractor"]["trunk"],
+                     stats["feature_extractor"]["trunk"])
+    elif "feature_extractor" in params:
         fe, dst = params["feature_extractor"], "feature_extractor.backbone"
         conv(dst + ".patch_embed.proj", fe["patch_embed"])
         put(dst + ".pos_embed", fe["pos_embed"])
@@ -150,27 +180,46 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
             conv(f"{head}.{name}", layer)
 
     if "cam_model" in params:
-        cam, cam_stats = params["cam_model"], stats["cam_model"]
-        trunk, trunk_stats = cam["trunk"], cam_stats["trunk"]
-
-        def conv_bn(conv_dst, bn_dst, node, stat):
-            put(conv_dst + ".weight", conv_from_flax(node["Conv_0"]["kernel"]))
-            bn(bn_dst, node["BatchNorm_0"], stat["BatchNorm_0"])
-
-        dst = "cam_model.backbone"
-        conv_bn(dst + ".conv1", dst + ".bn1", trunk["ConvBN_0"], trunk_stats["ConvBN_0"])
-        k = 0
-        for stage, n_blocks in enumerate(_RESNET50_LAYERS):
-            for b in range(n_blocks):
-                node, stat = trunk[f"Bottleneck_{k}"], trunk_stats[f"Bottleneck_{k}"]
-                pre = f"{dst}.layer{stage + 1}.{b}"
-                for j in range(3):
-                    conv_bn(f"{pre}.conv{j + 1}", f"{pre}.bn{j + 1}", node[f"ConvBN_{j}"], stat[f"ConvBN_{j}"])
-                if "ConvBN_3" in node:
-                    conv_bn(f"{pre}.downsample.0", f"{pre}.downsample.1", node["ConvBN_3"], stat["ConvBN_3"])
-                k += 1
+        cam = params["cam_model"]
+        resnet_trunk("cam_model.backbone.", cam["trunk"], stats["cam_model"]["trunk"])
         for angle in ("vfov", "pitch", "roll"):
             linear(f"cam_model.fc_{angle}", cam[f"fc_{angle}"])
+
+    for i, node in indexed(params, "transformer").items():
+        dst = f"transformer.{i}"
+        linear(dst + ".global_feat_dim", node["global_feat_dim"])
+        linear(dst + ".upsampling", node["upsampling"])
+        linear(dst + ".upsampling2", node["upsampling2"])
+        enc, dst = node["trans_encoder"], dst + ".trans_encoder"
+        linear(dst + ".img_embedding", enc["img_embedding"])
+        put(dst + ".position_embeddings.weight", enc["position_embeddings"])
+        linear(dst + ".cls_head", enc["cls_head"])
+        linear(dst + ".residual", enc["residual"])
+        for l, layer in indexed(enc, "layer").items():
+            pre = f"{dst}.layer.{l}"
+            attn = layer["attn"]
+            for name in ("query", "key", "value"):
+                linear(f"{pre}.attention.self.{name}", attn[name])
+            linear(f"{pre}.attention.dense", attn["out"])
+            norm(f"{pre}.attention.LayerNorm", attn["ln"])
+            g, gdst = layer["graph_conv"], pre + ".graph_conv"
+            for name in ("pre_norm", "norm1", "norm2"):
+                norm(f"{gdst}.{name}", g[name])
+            for name in ("lin1", "lin2"):
+                put(f"{gdst}.{name}.W", linear_from_flax(g[name]["kernel"]))
+                put(f"{gdst}.{name}.b", g[name]["bias"])
+            put(gdst + ".conv.weight", g["conv_w"]["kernel"])
+            put(gdst + ".conv.bias", g["conv_w"]["bias"])
+            linear(pre + ".intermediate", layer["intermediate"])
+            linear(pre + ".out_dense", layer["output"])
+            norm(pre + ".out_ln", layer["ln"])
+
+    if "backbone" in params:
+        # The HMR baseline: the trunk's and the regressor's keys top-level.
+        resnet_trunk("", params["backbone"]["trunk"], stats["backbone"]["trunk"])
+        for name in ("fc1", "fc2", "decpose", "decshape", "deccam"):
+            if name in params:
+                linear(name, params[name])
     return sd
 
 
