@@ -52,6 +52,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    it), K2 also with its wrapper, its face tables and under
    the largest GT camera; forward crops/s at B=48 with "pallas" and
    with "einsum"; train step ms and crops/s at B=64; peak memory.
+6b. vit.remat (`phase_remat`): configs/vit-l.yaml (ViT-L, full size, remat
+   on, drop path 0.5), bf16, B=64, the GT render on: one step's forward,
+   loss and backward with the ViT blocks checkpointed and one without, from
+   the same weights and generator seed (so the same drop-path masks), then
+   a second plain one. The losses equal; the gradients' relative 2-norm
+   difference within twice the two plain steps' (the backward's atomics)
+   or 1e-4; K2 once a step; the peak allocated lower with remat. Prints
+   each step's peak and ms, and the steps timed in turns.
 7. Trainer path: `Trainer.fit` at the same width, 2 epochs x 3 steps of
    B=64 fed by the port's BatchLoader and device_prefetch from an in-memory
    dataset, log_every=1, an async save every 4 steps and validation over 2
@@ -137,6 +145,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and bundle size, the demo's img/s, K1 at (8, 12, 192, 64), held against
    its plain version through attention() and the custom op, beside
    scaled_dot_product_attention.
+10b. Serving across cards (`phase_serve_mesh`), on the one card, bf16,
+   "pallas", max_people 8, on phase 8's checkpoint: `whmr-serve
+   --data_parallel 1` (a 1 x 1 grid) under 8 clients, every response equal
+   to the mesh-free pipeline's run_image bit for bit; then
+   `DemoPipeline(mesh=)` on grids of cuda:0 repeated (1 x 1, d=2, m=2,
+   d=2 x m=2; ViT-L of configs/vit-l.yaml on seeded random weights at 1 x 1
+   and m=2): run_image without and with CamCalib and a coalescing
+   BatchingExecutor under 8 clients, each within 1e-3 m of the same
+   weights without a grid; K1 depth x m x d launches a forward, all on
+   tensor cores; a bundle with a grid and max_people 6 on a 4 x 1 grid
+   refused with whmr_tpu's messages. Times: crops/s, the worker's ms a
+   device batch, K1 at each local-head shape beside its bound. One card
+   prices the code paths, not scaling across cards.
 
 11. Branches (`phase_branches`), at full width, on phase 8's dataset and
    checkpoint: (f) whmr_tpu's other attention formulations, one name for
@@ -307,6 +328,27 @@ ATTN_IMPLS_TOL = 1e-3
 # The fused Adam's parameters against the foreach Adam's after one step
 # from the same state and gradients.
 FUSED_ADAM_TOL = 1e-6
+# vit.remat (Part A of PR 11's slice): one ViT-L (configs/vit-l.yaml) train
+# step at B=64 in bf16 with the blocks checkpointed and one without, from
+# the same weights and generator state. The losses equal; the gradients
+# differ by the backward's atomics only: their 2-norm difference, relative
+# to the gradients' 2-norm, within twice that of two plain steps or
+# PAR_RTOL, whichever is larger.
+REMAT_CFG = "configs/vit-l.yaml"
+# Timed steps: (plain, remat, remat, plain) this many times.
+REMAT_TIMED_ROUNDS = 2
+# Serving across cards (Part B): grids of repeated cuda:0 devices, (data,
+# model); ViT-B at these shapes, ViT-L at 1 x 2, each model's 1 x 1 grid
+# first as the baseline its times are read against. Each grid's vertices
+# against the same weights without a grid, m (the main path's bf16 limit
+# between variants of one forward); a 1 x 1 whmr-serve --data_parallel 1
+# against the mesh-free run_image bit for bit. The executor's requests
+# cycle over 4 frames of 1-3 people (CamCalib once a frame).
+MESH_GRIDS = ((1, 1), (2, 1), (1, 2), (2, 2))
+MESH_VIT_L_GRIDS = ((1, 1), (1, 2))
+MESH_VERTS_TOL = 1e-3
+MESH_REQUESTS = 16
+MESH_FRAMES = (0, 9, 17, 20)
 # res50 bf16 against its fp32 twin: the vertices, m (the main path's
 # fp32 limit), and step 1's loss, relative: about 10x the first reading on
 # an H100 80GB HBM3 (2.07e-4), as LOSS_RTOL is set.
@@ -951,6 +993,83 @@ def phase_train_times(cfg, model, consts, rc, batch, state, launches, k2_err, k2
         "library_ms": None,
         "share_of_bound": bound_ms / ms,
     }
+
+
+def _grad_rel(got, want):
+    """The 2-norm of got - want over every gradient, relative to want's."""
+    d = torch.stack(torch._foreach_norm([got[k].float() - want[k].float() for k in want])).norm()
+    return (d / torch.stack(torch._foreach_norm([w.float() for w in want.values()])).norm()).item()
+
+
+def phase_remat():
+    """Part A: vit.remat at ViT-L (configs/vit-l.yaml, full size), bf16,
+    B=64, the GT render on. One step's gradients with the blocks
+    checkpointed against the same step without (same weights, same
+    generator seed, so the same drop-path masks): equal losses, gradients
+    apart by the backward's atomics only, K2 once a step, and a lower peak.
+    Returns the launches of the checked steps."""
+    from whmr_tpu_torch.config import load_yaml
+
+    cfg = load_yaml(str(Path(__file__).resolve().parent / REMAT_CFG))
+    v = cfg.vit
+    check(v.remat and (v.embed_dim, v.depth, v.num_heads) == (1024, 24, 16) and cfg.train.batch_size == 64,
+          f"{REMAT_CFG} is no longer ViT-L with remat at B=64: {v}, B={cfg.train.batch_size}")
+    model, consts, rc, batch = train_setup(cfg)
+    model.train()
+    state = ts.create_train_state(cfg, model)
+    backbone = model.feature_extractor.backbone
+    b = cfg.train.batch_size
+
+    def step(remat):
+        backbone.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        grads, losses = ts._microbatch_grads(cfg, model, state, consts, batch,
+                                             torch.Generator(device="cuda").manual_seed(1), rc)
+        torch.cuda.synchronize()
+        return grads, losses["loss"].item(), (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated(), base
+
+    launches, runs = {}, {}
+    for label, remat in (("plain", False), ("remat", True), ("plain again", False)):
+        reset_launches()
+        grads, loss, ms, peak, base = step(remat)
+        launches[label] = n = read_launches()
+        check(n["rasterizer"] == 1 and n["attention"] == 0 and n["fused_attention"] == 0,
+              f"ViT-L {label} step: launches {n}, want K2 once and no K1 or K3")
+        if label == "plain":
+            ref = grads
+            rel = 0.0
+        else:
+            rel = _grad_rel(grads, ref)
+            del grads
+        runs[label] = (loss, rel, ms, peak, base)
+        log(f"remat: ViT-L B={b} bf16 {label} step (vit.remat={remat}): loss {loss!r}, gradients {rel:.3g} from the "
+            f"first plain step's (relative 2-norm; that step is the reference); {ms:.1f} ms with the first call's set-up; peak "
+            f"{peak / 2**30:.2f} GiB allocated ({base / 2**30:.2f} GiB before the step); launches {n}")
+    del ref
+    noise = runs["plain again"][1]
+    tol = max(2 * noise, PAR_RTOL)
+    check(runs["remat"][0] == runs["plain"][0] == runs["plain again"][0],
+          f"ViT-L step loss with remat {runs['remat'][0]!r} differs from without {runs['plain'][0]!r}")
+    check(runs["remat"][1] <= tol, f"ViT-L remat gradients {runs['remat'][1]} from the plain step's (tolerance {tol}: "
+          f"two plain steps read {noise})")
+    saved = runs["plain again"][3] - runs["remat"][3]
+    check(saved > 0, f"remat did not lower the ViT-L step's peak: {runs['remat'][3]} vs {runs['plain again'][3]} B")
+    times = {False: [], True: []}
+    for remat in (False, True, True, False) * REMAT_TIMED_ROUNDS:
+        times[remat].append(step(remat)[2])
+    log(f"remat: ViT-L B={b} bf16 step (forward, loss, backward; no update): vit.remat=False "
+        f"{np.mean(times[False]):.1f} ms ({[round(x, 1) for x in times[False]]}), vit.remat=True "
+        f"{np.mean(times[True]):.1f} ms ({[round(x, 1) for x in times[True]]}) (synchronised host clock, in turns); "
+        f"peak {runs['plain again'][3] / 2**30:.2f} GiB without remat and {runs['remat'][3] / 2**30:.2f} GiB with it, "
+        f"{saved / 2**30:.2f} GiB less, both over {runs['remat'][4] / 2**30:.2f} GiB held before the step; "
+        f"equal losses, gradients {runs['remat'][1]:.3g} apart (two plain steps {noise:.3g}, tolerance {tol:.3g})")
+    del model, state, batch, consts, rc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 class _SampleDataset:
@@ -2116,6 +2235,196 @@ def phase_serve(root, paths, cli_metric):
     return launches
 
 
+def _mesh_pipeline(cfg, weights, grid, camcalib=True):
+    """The live bf16 pipeline on a grid of cuda:0 repeated ((data, model),
+    or None for no grid), the full-image detector."""
+    from whmr_tpu_torch.inference.pipeline import DemoPipeline
+    from whmr_tpu_torch.parallel import ServingGrid
+
+    mesh = None if grid is None else ServingGrid([["cuda:0"] * grid[1]] * grid[0])
+    return DemoPipeline(cfg, weights, synthetic_smpl_assets(), max_people=SERVE_PEOPLE, use_camcalib=camcalib,
+                        dtype=torch.bfloat16, mesh=mesh, device="cuda")
+
+
+def _mesh_run(label, cfg, pipe, ref, frames, boxes):
+    """One grid's checks and times: run_image without and with CamCalib and
+    a coalescing BatchingExecutor under 8 client threads, each against the
+    pipeline without a grid on the same weights within MESH_VERTS_TOL m; K1
+    depth x m times a replica a forward (once a block a shard), all on
+    tensor cores; K1 at the local-head shape. Returns the launches."""
+    d, m = pipe.mesh.shape["data"], pipe.mesh.shape["model"]
+    per_forward = cfg.vit.depth * m * d
+    worst, launches = 0.0, {}
+    picks = MESH_FRAMES
+    for cam in (False, True):
+        pipe.use_camcalib = ref.use_camcalib = cam
+        reset_launches()
+        got = [pipe.run_image(frames[fi], dets=boxes[fi]) for fi in picks]
+        torch.cuda.synchronize()
+        launches[f"run_image camcalib={cam}"] = n = read_launches()
+        check(n["attention"] == n["attention.mma"] == per_forward * len(picks)
+              and n["rasterizer"] == n["fused_attention"] == 0,
+              f"{label} run_image camcalib={cam}: launches {n}, want K1 {per_forward} a forward on tensor cores "
+              f"({cfg.vit.depth} blocks x {m} shards x {d} replicas)")
+        for fi, g in zip(picks, got):
+            want = ref.run_image(frames[fi], dets=boxes[fi])
+            check(g["n_people"] == want["n_people"] == len(boxes[fi]), f"{label}: people")
+            keys = ("verts", "verts_world") + (("cam_rotmat", "render_rotmat") if cam else ())
+            worst = max(worst, *(float(np.abs(g[k] - want[k]).max()) for k in keys))
+    check(worst <= MESH_VERTS_TOL, f"{label}: run_image differs from the pipeline without a grid by {worst} m")
+
+    # the coalescing executor (CamCalib on, per-frame rotations from the
+    # lead replica) under 8 client threads
+    jobs = [(fi, frames[fi], boxes[fi]) for fi in (picks[i % len(picks)] for i in range(MESH_REQUESTS))]
+    ex = serve_cli.BatchingExecutor(pipe, max_wait_ms=2.0)
+    spans = []
+    ex._run_group = _host_timed(ex._run_group, spans)
+    out = [None] * len(jobs)
+
+    def client(k):
+        for i in range(k, len(jobs), SERVE_CLIENTS):
+            out[i] = ex.submit(jobs[i][1], dets=jobs[i][2])
+
+    reset_launches()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ex.shutdown()
+    launches["executor"] = n = read_launches()
+    check(all(o is not None for o in out), f"{label}: an executor request went unanswered")
+    stats = ex.stats
+    check(n["attention"] == n["attention.mma"] == per_forward * stats["device_batches"],
+          f"{label} executor: launches {n}, want K1 {per_forward} a device batch on tensor cores "
+          f"({stats['device_batches']} batches)")
+    held = _held(out, jobs, ref, MESH_VERTS_TOL, f"{label} executor")
+    crops = sum(len(dets) for _, _, dets in jobs)
+    shape = (SERVE_PEOPLE // d, cfg.vit.num_heads // m, 192, cfg.vit.embed_dim // cfg.vit.num_heads)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=g, dtype=torch.bfloat16) for _ in range(3))
+    want = k1.attention_reference(q, k, v)
+    tol = k1_tolerance(want, torch.bfloat16)
+    reset_launches()
+    diff = (k1.attention(q, k, v).float() - want.float()).abs()
+    torch.cuda.synchronize()
+    n = read_launches()
+    check(n["attention"] == n["attention.mma"] == 1, f"K1 at {shape}: launches {n}, want 1 on tensor cores")
+    err = diff.max().item()
+    check(bool((diff <= tol).all()), f"K1 disagrees with its plain version at the local-head shape {shape} bf16: "
+          f"max_abs_err {err}")
+    k1_ms = cuda_ms(lambda: k1.attention(q, k, v), 200)
+    bound_ms, bound_by = attention_bound_ms(shape, torch.bfloat16)
+    log(f"mesh: {label} (grid {d} x {m} of cuda:0; the figures price the code path on one card, not scaling "
+        f"across cards): run_image with and without CamCalib within {worst:.3g} m of the pipeline without a grid, "
+        f"the executor's {len(jobs)} responses within {held:.3g} m (tolerance {MESH_VERTS_TOL} m); executor "
+        f"{crops / wall:.1f} crops/s ({len(jobs)} requests, {crops} crops, {SERVE_CLIENTS} clients, {wall:.2f} s), "
+        f"the worker {np.mean(spans) * 1e3:.2f} ms a device batch ({min(spans) * 1e3:.2f}-{max(spans) * 1e3:.2f}; "
+        f"{stats['device_batches']} batches, host clock, the fetch included), {stats['camcalib_calls']} CamCalib calls, {stats['camcalib_cache_hits']} cache hits; K1 "
+        f"{per_forward} launches a forward on tensor "
+        f"cores; K1 at the local-head shape {shape} {k1_ms * 1e3:.2f} us ({bound_ms / k1_ms:.1%} of the "
+        f"{bound_ms * 1e3:.2f} us bound, {bound_by}), max_abs_err {err:.3g} (tolerance {tol.max().item():.3g})")
+    return launches
+
+
+def phase_serve_mesh(root):
+    """Part B: serving across cards, on the one card the machine has, at
+    full width (WHMRConfig(), bf16, "pallas", max_people 8) on phase_cli's
+    checkpoint: whmr-serve --data_parallel 1 through the CLI against the
+    mesh-free run_image bit for bit, then grids of cuda:0 repeated (1 x 1,
+    d=2, m=2, d=2 x m=2; ViT-L on seeded random weights at 1 x 1 and m=2),
+    and the refusals. Returns the launches of each run."""
+    from whmr_tpu_torch.config import load_yaml
+    from whmr_tpu_torch.inference.pipeline import DemoPipeline
+    from whmr_tpu_torch.parallel import ServingGrid
+
+    ckpt = str(root / "train" / "checkpoints")
+    cap = str(SERVE_PEOPLE)
+    launches = {}
+    frames, boxes = _serve_frames()
+    cfg = WHMRConfig().with_overrides(**dict(zip(SERVE_MISC[::2], SERVE_MISC[1::2])))
+    weights = demo_cli.live_weights(demo_cli.build_parser().parse_args(["--image_folder", ".", "--checkpoint", ckpt]),
+                                    cfg)
+    ref = _mesh_pipeline(cfg, weights, None)
+
+    # 1. whmr-serve --data_parallel 1: a 1 x 1 grid through the CLI, its
+    # coalesced responses equal to run_image without a grid bit for bit
+    t0 = time.perf_counter()
+    srv = serve_cli.build_server(["--checkpoint", ckpt, "--port", "0", "--dtype", "bf16", "--max_people", cap,
+                                  "--detector", "full", "--data_parallel", "1", "--warmup", "--device", "cuda",
+                                  "--misc", *SERVE_MISC])
+    check(srv.meta.get("mesh") == {"data": 1, "model": 1} and srv.executor is not None, f"/meta {srv.meta}")
+    url = f"http://127.0.0.1:{srv.httpd.server_address[1]}"
+    server_thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    server_thread.start()
+    jobs = [(i % len(frames), frames[i % len(frames)], boxes[i % len(frames)]) for i in range(MESH_REQUESTS)]
+    reset_launches()
+    lat, out, wall = _drive(url, [_request(f, d) for _, f, d in jobs], SERVE_CLIENTS)
+    torch.cuda.synchronize()
+    launches["whmr-serve --data_parallel 1"] = n = read_launches()
+    stats = _get(url + "/stats")
+    srv.httpd.shutdown()
+    srv.drain()
+    server_thread.join(timeout=60)
+    check(n["attention"] == n["attention.mma"] == 12 * stats["device_batches"],
+          f"whmr-serve --data_parallel 1: K1 launches {n}, want 12 a device batch on tensor cores")
+    worst = _held(out, jobs, ref, 0.0, "whmr-serve --data_parallel 1")
+    log(_latency_line("mesh: whmr-serve --data_parallel 1 (a 1 x 1 grid)", lat, wall, stats,
+                      sum(len(d) for _, _, d in jobs))
+        + f"; every response equals run_image without a grid (largest difference {worst} m); "
+        f"{time.perf_counter() - t0:.1f} s with the build and warm-up")
+    del srv
+
+    # 2-4. ViT-B on grids of cuda:0 repeated
+    for grid in MESH_GRIDS:
+        t0 = time.perf_counter()
+        pipe = _mesh_pipeline(cfg, weights, grid)
+        label = f"ViT-B d={grid[0]} x m={grid[1]}"
+        for name, n in _mesh_run(label, cfg, pipe, ref, frames, boxes).items():
+            launches[f"{label} {name}"] = n
+        log(f"mesh: {label}: {time.perf_counter() - t0:.1f} s with the pipeline's build")
+        del pipe
+    del ref, weights
+    torch.cuda.empty_cache()
+
+    # 5. ViT-L (configs/vit-l.yaml) at m=2 on seeded random weights
+    t0 = time.perf_counter()
+    lcfg = load_yaml(str(Path(__file__).resolve().parent / REMAT_CFG)).with_overrides(
+        **dict(zip(SERVE_MISC[::2], SERVE_MISC[1::2])))
+    lmodel, _ = build_model(lcfg, dtype=torch.float32, device="cpu", seed=0)
+    lweights = lmodel.state_dict()
+    del lmodel
+    lref = _mesh_pipeline(lcfg, lweights, None)
+    log(f"mesh: ViT-L weights' init and the pipeline without a grid: {time.perf_counter() - t0:.1f} s")
+    for grid in MESH_VIT_L_GRIDS:
+        t0 = time.perf_counter()
+        lpipe = _mesh_pipeline(lcfg, lweights, grid)
+        label = f"ViT-L d={grid[0]} x m={grid[1]}"
+        for name, n in _mesh_run(label, lcfg, lpipe, lref, frames, boxes).items():
+            launches[f"{label} {name}"] = n
+        log(f"mesh: {label}: {time.perf_counter() - t0:.1f} s with the pipeline's build")
+        del lpipe
+    del lref, lweights
+    torch.cuda.empty_cache()
+
+    # the refusals, with whmr_tpu's messages
+    for kw, msg in (({"bundle": str(root / "bundle_demo"), "max_people": SERVE_PEOPLE, "grid": (2, 1)}, "single device"),
+                    ({"max_people": 6, "grid": (4, 1)}, "divisible")):
+        grid = kw.pop("grid")
+        mesh = ServingGrid([["cuda:0"] * grid[1]] * grid[0])
+        try:
+            DemoPipeline(cfg, None, synthetic_smpl_assets(), mesh=mesh, **kw)
+        except ValueError as e:
+            check(msg in str(e), f"the refusal of {kw} with a {grid} grid says {e}")
+        else:
+            check(False, f"a {grid} grid with {kw} was not refused")
+    log("mesh: a bundle with a grid and max_people=6 on a 4 x 1 grid are refused with whmr_tpu's messages")
+    return launches
+
+
 def _set_attn_impl(model, impl):
     """The ViT blocks' attention formulation, switched in place (the Tz
     head's block always runs "einsum")."""
@@ -2521,6 +2830,9 @@ def main():
     kernels.append(k2_entry)
     del model, inputs, train_model, state, batch
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    remat_launches = phase_remat()
+    log(f"remat: phase_remat took {time.perf_counter() - t0:.1f} s")
     fit_launches, fit_ms = phase_trainer(train_cfg, train_consts, train_ms)
     # phase_serve serves the checkpoint phase_cli trains, on its dataset
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
@@ -2532,6 +2844,9 @@ def main():
         t0 = time.perf_counter()
         serve_launches = phase_serve(root, paths, cli_metric)
         log(f"serve: phase_serve took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_launches = phase_serve_mesh(root)
+        log(f"mesh: phase_serve_mesh took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         branch_launches = phase_branches(root, paths, cli_metric)
         log(f"branches: phase_branches took {time.perf_counter() - t0:.1f} s")
@@ -2546,7 +2861,9 @@ def main():
     # whmr-train's K2) and the serving path's (K1 on tensor cores in every
     # export check, server, eval, demo and video run), each read over its
     # run; K3's, checked to be 0.
-    runs = list(cli_launches.values()) + par_launches + list(serve_launches.values()) + list(branch_launches.values())
+    # The remat steps' K2 and the grids' K1, each read over its run.
+    runs = (list(cli_launches.values()) + par_launches + list(serve_launches.values())
+            + list(branch_launches.values()) + list(remat_launches.values()) + list(mesh_launches.values()))
     for k in kernels:
         k["launches"] += sum(n[k["name"]] for n in runs)
         if k["mma_launches"] is not None:

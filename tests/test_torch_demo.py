@@ -13,6 +13,7 @@ bit for bit, since they run the same numpy, OpenCV and C++ code.
 
 import json
 import os
+import pickle
 
 import cv2
 import jax
@@ -37,6 +38,7 @@ from whmr_tpu_torch.inference import pipeline as tpipe
 from whmr_tpu_torch.inference import renderer as trend
 from whmr_tpu_torch.inference.export import OUTPUT_KEYS
 from whmr_tpu_torch.inference.video_cli import TrackingDetector
+from whmr_tpu_torch.parallel import make_serving_grid
 from whmr_tpu_torch.utils import pose_tracker as tpose
 from whmr_tpu_torch.utils import tracking as ttrack
 from whmr_tpu_torch.utils import vis as tvis
@@ -132,9 +134,23 @@ def test_dispatch_ahead_and_run_folder(pipelines, tmp_path):
 
 
 def test_pipeline_guards(pipelines):
-    tcfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tpipe.DemoPipeline(tcfg, None, synthetic_smpl_assets(), mesh=object(), device="cpu")
+    """mesh= serves on a grid (two replicas of the CPU device here, the
+    outputs of one pipeline and of whmr_tpu's) and keeps whmr_tpu's
+    refusals; a card that is absent raises."""
+    jp, tp = pipelines[True]
+    tcfg = tiny_config().with_overrides(**CAM)
+    grid = make_serving_grid(2, device_type="cpu")
+    dp = tpipe.DemoPipeline(tcfg, tp.model.state_dict(), synthetic_smpl_assets(), max_people=MAX_PEOPLE,
+                            use_camcalib=True, mesh=grid, device="cpu")
+    img = _image(2)
+    got = dp.run_image(img, dets=list(DETS))
+    want = tp.run_image(img, dets=list(DETS))
+    for k in OUTPUT_KEYS:
+        np.testing.assert_allclose(got[k], want[k], atol=2e-5, rtol=2e-5, err_msg=k)
+    with pytest.raises(ValueError, match="divisible"):
+        tpipe.DemoPipeline(tcfg, None, synthetic_smpl_assets(), max_people=3, mesh=grid)
+    with pytest.raises(ValueError, match="single device"):
+        tpipe.DemoPipeline(tcfg, None, synthetic_smpl_assets(), max_people=2, mesh=grid, bundle="b")
     with pytest.raises(RuntimeError, match="--device cpu"):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(torch.cuda, "is_available", lambda: False)
@@ -238,12 +254,24 @@ def test_demo_cli_on_cpu(tmp_path):
                            "--misc", *TINY])
     assert stats["images"] == 1 and stats["people"] == 2
     assert (tmp_path / "out" / "a_overlay.png").is_file() and (tmp_path / "out" / "a.obj").is_file()
-    parallel = ["--image_folder", str(folder), "--data_parallel", "2", "--device", "cpu", "--misc", *TINY]
-    with pytest.raises(SystemExit, match="needs 2 devices"):
-        demo_cli.main(parallel)
-    with pytest.MonkeyPatch.context() as mp, pytest.raises(NotImplementedError, match="slice 5"):
-        mp.setattr(torch.cuda, "device_count", lambda: 2)
-        demo_cli.main(parallel)
+    # --data_parallel 2 on the CPU: two replicas, each on one of the 2 crop
+    # rows, give the single pipeline's results
+    with open(tmp_path / "out" / "a.pkl", "rb") as f:
+        single = pickle.load(f)
+    stats = demo_cli.main(["--image_folder", str(folder), "--output_folder", str(tmp_path / "out_dp"),
+                           "--detector", "file", "--bbox_file", str(tmp_path / "boxes.json"),
+                           "--max_people", "2", "--no_camcalib", "--no_render", "--data_parallel", "2",
+                           "--device", "cpu", "--misc", *TINY])
+    assert stats["images"] == 1 and stats["people"] == 2
+    with open(tmp_path / "out_dp" / "a.pkl", "rb") as f:
+        parallel = pickle.load(f)
+    for k in OUTPUT_KEYS:
+        np.testing.assert_allclose(parallel[k], single[k], atol=2e-5, rtol=2e-5, err_msg=k)
+    # on cards, a grid larger than the cards present is refused
+    with pytest.MonkeyPatch.context() as mp, pytest.raises(SystemExit, match="needs 2 devices, but only 1"):
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 1)
+        demo_cli.main(["--image_folder", str(folder), "--data_parallel", "2", "--misc", *TINY])
 
 
 def _write_clip(path, n_frames=6, size=(64, 96)):

@@ -51,6 +51,72 @@ def test_vit_backbone(impl):
     np.testing.assert_allclose(n(got), n(want), atol=ATOL)
 
 
+def _saved_bytes(fn):
+    """fn()'s result and the bytes autograd saved for its backward outside
+    any checkpointed region."""
+    total = [0]
+
+    def pack(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, total[0]
+
+
+def test_vit_remat_is_bit_for_bit_and_saves_less():
+    """vit.remat in training with drop path on: the same outputs, gradients
+    and generator stream as the plain blocks, bit for bit, with fewer bytes
+    saved for the backward (each block's drop-path masks are drawn before
+    its checkpointed call and reused by the recompute)."""
+    kw = dict(img_size=(64, 48), embed_dim=64, depth=3, num_heads=2, drop_path_rate=0.5)
+    torch.manual_seed(0)
+    model = tvit.ViTBackbone(TViTConfig(**kw)).train()
+    x = torch.randn(4, 3, 64, 48)
+    runs = {}
+    for remat in (False, True):
+        model.remat = remat
+        model.zero_grad()
+        xi = x.clone().requires_grad_(True)
+        g = torch.Generator().manual_seed(3)
+        out, saved = _saved_bytes(lambda: model(xi, g))
+        out.square().sum().backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        runs[remat] = (out.detach(), xi.grad, grads, saved, g.get_state())
+    (o0, gx0, g0, s0, st0), (o1, gx1, g1, s1, st1) = runs[False], runs[True]
+    assert torch.equal(o0, o1) and torch.equal(gx0, gx1)
+    assert g0.keys() == g1.keys() and all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert torch.equal(st0, st1)
+    with torch.no_grad():  # the masks dropped some branches: the draws were exercised
+        assert not torch.equal(o0, model.eval()(x))
+    assert s1 < s0 / 2, (s1, s0)
+
+
+def test_vit_remat_matches_whmr_tpu():
+    """The port's remat forward (autograd recording, so the blocks run
+    checkpointed) and its input gradient against whmr_tpu's
+    ViTBackbone(remat=True) at the same weights."""
+    kw = dict(img_size=(64, 48), embed_dim=64, depth=2, num_heads=2, drop_path_rate=0.0, remat=True)
+    x = np.random.RandomState(2).randn(2, 64, 48, 3).astype(np.float32)
+    model = jvit.ViTBackbone(JViTConfig(**kw))
+    variables = model.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = model.apply(variables, jnp.asarray(x))
+    # a random projection of the features (a sum of their squares is
+    # nearly constant after the last LayerNorm, and its gradient noise)
+    r = np.random.RandomState(3).randn(*want.shape).astype(np.float32)
+    want_gx = jax.grad(lambda a: jnp.sum(model.apply(variables, a) * r))(jnp.asarray(x))
+    port = load_from_flax(tvit.ViTBackbone(TViTConfig(**kw)), variables, "feature_extractor",
+                          "feature_extractor.backbone.")
+    assert port.remat
+    xt = nchw(x).requires_grad_(True)
+    got = port(xt).permute(0, 2, 3, 1)
+    (got * t(r)).sum().backward()
+    np.testing.assert_allclose(n(got), n(want), atol=ATOL)
+    gx = xt.grad.permute(0, 2, 3, 1)
+    np.testing.assert_allclose(n(gx), n(want_gx), atol=ATOL * float(np.abs(n(want_gx)).max()))
+
+
 def test_camcalib_net():
     x = np.random.RandomState(1).randn(1, 64, 64, 3).astype(np.float32)
     model = jresnet.CamCalibNet()

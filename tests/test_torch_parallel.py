@@ -27,6 +27,8 @@ CPU: gloo ranks spawned on one torch thread each, at `tiny_config`.
   element. With a planted fault in the 2-rank DP run the worst leaf's mu
   reads 2.0 (the gradient sync skipped) and 0.63 (the local mask count as
   the loss denominator), and the update 2 learning rates (a flipped sign).
+- vit.remat under TP and FSDP: the same step as without it, bit for bit
+  (and against whmr_tpu's step, as the other cases).
 - A checkpoint written by the FSDP and the TP runs (gathered on rank 0, in
   the reference layout) loads into a one-process Trainer bit for bit.
 - The loader's rank slices are disjoint and cover the epoch, and
@@ -87,12 +89,15 @@ CLIP = {"train.grad_clip_norm": 1000.0}
 LR = 5e-5  # tiny_config's train.base_lr
 # Adam's moments, per leaf, relative to the leaf's largest reference moment.
 MOMENT_TOL = 1e-4
-# name: (ranks, model_parallel, fsdp, save a checkpoint, fed local rows)
+# name: (ranks, model_parallel, fsdp, save a checkpoint, fed local rows,
+# vit.remat)
 CASES = {
-    "dp": (2, 1, False, False, False),
-    "tp": (2, 2, False, True, False),
-    "fsdp": (2, 1, True, True, False),
-    "dp2xtp2": (4, 2, False, False, True),
+    "dp": (2, 1, False, False, False, False),
+    "tp": (2, 2, False, True, False, False),
+    "fsdp": (2, 1, True, True, False, False),
+    "dp2xtp2": (4, 2, False, False, True, False),
+    "tp_remat": (2, 2, False, False, False, True),
+    "fsdp_remat": (2, 1, True, False, False, True),
 }
 
 
@@ -207,10 +212,10 @@ _RUNS = {}
 def _run(ref, name):
     """The port's ranks of a case, run once for the module."""
     if name not in _RUNS:
-        world, model_parallel, fsdp, save, local = CASES[name]
+        world, model_parallel, fsdp, save, local, remat = CASES[name]
         spec = {"log_dir": str(ref["root"] / name), "model_parallel": model_parallel, "fsdp": fsdp,
                 "weights": ref["weights"], "batches": [ref["batch"]], "out": str(ref["root"] / f"{name}.pt"),
-                "save": save, "local": local, "overrides": CLIP}
+                "save": save, "local": local, "overrides": {**CLIP, "vit.remat": remat}}
         _spawn(world, spec)
         _RUNS[name] = dict(torch.load(spec["out"], weights_only=True), log_dir=spec["log_dir"])
     return _RUNS[name]
@@ -257,6 +262,24 @@ def test_sharded_step_matches_whmr_tpu(ref, name):
         _update(got["params"], want["params"], p0, want["mu"])
         for part in ("mu", "nu"):
             _moments_per_leaf(got[part], want[part], part)
+
+
+@pytest.mark.parametrize("name", ["tp", "fsdp"])
+def test_remat_step_equals_the_step_without_it(ref, name):
+    """vit.remat under TP (DTensor linears) and FSDP2 (each block a unit,
+    re-gathered for the recompute): the step's records, parameters, Adam
+    moments and BatchNorm statistics equal the same sharded step's without
+    remat, bit for bit."""
+    got, want = _run(ref, f"{name}_remat"), _run(ref, name)
+
+    def metrics(run):  # the records without their wall-clock stamps
+        return [{k: v for k, v in json.loads(line).items() if k != "time"} for line in run["records"].splitlines()]
+
+    assert metrics(got) == metrics(want)
+    for part in ("params", "batch_stats", "mu", "nu"):
+        assert got[part].keys() == want[part].keys(), part
+        for k, v in want[part].items():
+            assert torch.equal(got[part][k], v), (part, k)
 
 
 @pytest.mark.parametrize("name", ["fsdp", "tp"])

@@ -9,8 +9,9 @@
   is a copy.
 - The weight bridge: a torch .pt written from `state_dict_from_flax`, a bare
   ViT backbone and a port checkpoint directory load through
-  `load_pretrained`; so does the published checkpoint's key set
-  (`real_ckpt_manifest`), strictly, in both packages.
+  `load_pretrained`; so does the published checkpoint's key set (the
+  port's `real_ckpt_manifest`, held key for key and shape for shape to
+  whmr_tpu's), strictly, in both packages.
 - The whole slice: whmr_tpu's `Trainer.fit` and the port's over the same 2
   batches (2 epochs of 1 step, the LR decayed after epoch 1), from the same
   weights, with dropout off on both sides as in test_torch_train_step.py:
@@ -31,12 +32,13 @@ import torch
 
 from whmr_tpu.parallel import make_mesh
 from whmr_tpu.training.trainer import Trainer as JTrainer
-from whmr_tpu.utils.real_ckpt_manifest import manifest_state_dict
+from whmr_tpu.utils import real_ckpt_manifest as j_manifest
 from whmr_tpu.utils.testing import tiny_config as j_tiny_config
 from whmr_tpu_torch.models import layers as tlayers
 from whmr_tpu_torch.training import train_step as tts
 from whmr_tpu_torch.training.trainer import Trainer
 from whmr_tpu_torch.utils import profiling
+from whmr_tpu_torch.utils import real_ckpt_manifest as t_manifest
 from whmr_tpu_torch.utils.convert import state_dict_from_flax
 from whmr_tpu_torch.utils.testing import make_example_train_batch, tiny_config
 
@@ -331,12 +333,27 @@ def test_load_pretrained(tmp_path, jax_run):
         dst.load_pretrained(str(tmp_path / "orbax"))
 
 
+@pytest.mark.parametrize("size", ["default", "tiny"])
+def test_reference_manifest_equals_whmr_tpu(size):
+    """The port's copy of the manifest: whmr_tpu's keys, shapes, order and
+    integer keys, and the same random state_dict from a seed."""
+    jcfg, tcfg = (None, None) if size == "default" else (j_tiny_config(), tiny_config())
+    got, want = t_manifest.real_checkpoint_manifest(tcfg), j_manifest.real_checkpoint_manifest(jcfg)
+    assert list(got.items()) == list(want.items())
+    assert t_manifest.INT_KEY_SUFFIXES == j_manifest.INT_KEY_SUFFIXES
+    if size == "tiny":
+        a, b = t_manifest.manifest_state_dict(tcfg, seed=3), j_manifest.manifest_state_dict(jcfg, seed=3)
+        assert a.keys() == b.keys()
+        for k in b:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+
+
 def test_load_pretrained_reference_manifest(tmp_path, jax_run):
     """The published checkpoint's key set (the manifest, at tiny_config)
     loads strictly: the 61 constant buffers are dropped as whmr_tpu drops
     them, and every port parameter is matched and loaded. whmr_tpu's loader
     takes the same file. A truly unknown key, or a wrong shape, still raises."""
-    sd = {k: torch.from_numpy(v) for k, v in manifest_state_dict(j_tiny_config(), seed=3).items()}
+    sd = {k: torch.from_numpy(v) for k, v in t_manifest.manifest_state_dict(tiny_config(), seed=3).items()}
     pt = tmp_path / "w-hmr-p-vitpose_checkpoint.pt"
     torch.save({"model": sd}, pt)
     tr = _trainer(tmp_path / "port")

@@ -9,8 +9,9 @@ guards. Run it as
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. Checkpoints are the port's (`CheckpointManager`, the full
 training payload or the weights-only one); without one the weights are the
-seeded random init. `--data_parallel` and `--tensor_parallel` come with the
-parallelism slice (slice 5) and raise NotImplementedError.
+seeded random init. `--data_parallel N` and `--tensor_parallel M` serve
+from one process over a grid of N x M devices (`parallel/serving.py`):
+`cuda:0 .. cuda:N*M-1`, or with `--device cpu` the CPU N x M times.
 """
 
 from __future__ import annotations
@@ -37,9 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bbox_file", default=None, help="json bboxes for --detector file")
     p.add_argument("--max_people", type=int, default=8)
     p.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                   help="shard each crop batch over N devices (not ported yet: slice 5)")
+                   help="split each crop batch over N model replicas, one a device row")
     p.add_argument("--tensor_parallel", type=int, default=0, metavar="M",
-                   help="split ViT block weights over M devices (not ported yet: slice 5)")
+                   help="split ViT block weights over the M devices of each row")
     p.add_argument("--no_render", action="store_true")
     p.add_argument("--save_obj", action="store_true")
     p.add_argument("--no_camcalib", action="store_true")
@@ -61,24 +62,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def serving_mesh(args):
-    """--data_parallel/--tensor_parallel: checked as whmr_tpu checks them,
-    then refused, since the port's parallelism is slice 5. None for the
-    single-device path."""
+    """Resolve --data_parallel/--tensor_parallel into a (data, model)
+    `ServingGrid`, or None for the plain single-device path. dp x tp devices
+    in all: batch rows spread over "data", ViT block weights over "model".
+    On cards they are `cuda:0 ..` and must be present; `--device cpu`
+    repeats the CPU."""
+    from whmr_tpu_torch.parallel.serving import make_serving_grid
+
     dp = getattr(args, "data_parallel", 0) or 0
     tp = getattr(args, "tensor_parallel", 0) or 0
     if not dp and not tp:
         return None
+    device_type = torch.device(getattr(args, "device", "cuda")).type
     need = max(dp, 1) * max(tp, 1)
-    have = torch.cuda.device_count()
-    if need > have:
-        raise SystemExit(
-            f"--data_parallel {dp} x --tensor_parallel {tp} needs {need} "
-            f"devices, but only {have} are present"
-        )
-    raise NotImplementedError(
-        "--data_parallel/--tensor_parallel are not ported yet: they come with the "
-        "parallelism slice (slice 5)"
-    )
+    if device_type != "cpu":
+        have = torch.cuda.device_count()
+        if need > have:
+            raise SystemExit(
+                f"--data_parallel {dp} x --tensor_parallel {tp} needs {need} "
+                f"devices, but only {have} are present"
+            )
+    return make_serving_grid(max(dp, 1), max(tp, 1), device_type=device_type)
 
 
 def live_weights(args, cfg):

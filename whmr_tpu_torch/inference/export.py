@@ -83,26 +83,33 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def fetch(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def fetch(out) -> Dict[str, np.ndarray]:
     """Device outputs -> host numpy in one batch: every tensor is copied
-    into pinned memory with a non-blocking copy, then the host waits once
-    (the counterpart of whmr_tpu's one `jax.device_get`). Floating outputs
-    come back as float32 (numpy has no bf16)."""
-    host = {}
-    cuda = False
-    for k, v in out.items():
-        if v.is_floating_point() and v.dtype != torch.float32:
-            v = v.float()
-        if v.device.type == "cuda":
-            cuda = True
-            dst = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            dst.copy_(v, non_blocking=True)
-            host[k] = dst
-        else:
-            host[k] = v.detach()
-    if cuda:
-        torch.cuda.current_stream().synchronize()
-    return {k: v.numpy() for k, v in host.items()}
+    into pinned memory with a non-blocking copy, then the host waits once a
+    device (the counterpart of whmr_tpu's one `jax.device_get`). Floating
+    outputs come back as float32 (numpy has no bf16). A list of such dicts
+    (the replicas of a serving grid, each on its block of rows) comes back
+    as one dict, the blocks' rows concatenated in order."""
+    blocks = out if isinstance(out, (list, tuple)) else [out]
+    host, devices = [], set()
+    for block in blocks:
+        h = {}
+        for k, v in block.items():
+            if v.is_floating_point() and v.dtype != torch.float32:
+                v = v.float()
+            if v.device.type == "cuda":
+                devices.add(v.device)
+                dst = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                dst.copy_(v, non_blocking=True)
+                h[k] = dst
+            else:
+                h[k] = v.detach()
+        host.append(h)
+    for device in devices:
+        torch.cuda.current_stream(device).synchronize()
+    if len(host) == 1:
+        return {k: v.numpy() for k, v in host[0].items()}
+    return {k: np.concatenate([h[k].numpy() for h in host]) for k in host[0]}
 
 
 class _Consts(nn.Module):

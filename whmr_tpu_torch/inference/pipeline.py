@@ -17,6 +17,12 @@ pkl results, and render overlays.
 - Overlay rendering runs on the host (`inference/renderer.py`, the port's
   C++ scanline rasterizer).
 
+- Across cards (`mesh=`, a `parallel.ServingGrid` of d x m devices): one
+  replica of the live model a grid row, the crop batch split into d equal
+  row blocks, one to each replica, and with m > 1 each replica's ViT blocks
+  split over its row's devices (`parallel/serving.py`). The CamCalib frame
+  goes to every replica.
+
 The pipeline runs on the card unless `device="cpu"` is given, and raises
 when there is no card; it never falls back.
 """
@@ -213,48 +219,87 @@ class DemoPipeline:
 
         dtype: the live model's compute dtype (fp32 when None).
 
-        device: the card when None, or "cpu"; no fall back.
+        device: the card when None, or "cpu"; no fall back. With a mesh,
+        the grid's devices.
 
-        mesh: data and tensor parallel serving come with the parallelism
-        slice (slice 5) and raise here."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data/tensor-parallel serving) is not ported yet: it comes with the "
-                "parallelism slice (slice 5)"
-            )
+        mesh: a `parallel.ServingGrid` ((data, model) devices,
+        `parallel.make_serving_grid`): the crop batch is split over "data"
+        (rows are independent, so d replicas serve d times the rows of one
+        at the same outputs) and, when "model" is larger than 1, each
+        replica's ViT blocks over its row's devices (the Megatron rules of
+        `parallel/mesh.py`: the latency lever for ViT-L/H). The CamCalib
+        frame (batch 1) is replicated. Needs `max_people % data == 0` and
+        the live model."""
         self.cfg = cfg
         self.assets = assets
         self.max_people = max_people
         self.detector = detector or FullImageDetector()
         self.use_camcalib = use_camcalib
-        self.device = resolve_device(device or "cuda")
+        self.mesh = mesh
+        if mesh is not None:
+            if bundle is not None:
+                raise ValueError(
+                    "data-parallel serving needs the live model: an exported "
+                    "bundle is traced for a single device (torch.export fixes "
+                    "the device its program runs on)"
+                )
+            data_axis = mesh.shape["data"]
+            if max_people % data_axis != 0:
+                raise ValueError(
+                    f"max_people={max_people} must be divisible by the "
+                    f"mesh data axis ({data_axis}) to shard the crop batch"
+                )
+            if mesh.lead.type == "cuda":
+                resolve_device("cuda")
+            self.device = mesh.lead
+        else:
+            self.device = resolve_device(device or "cuda")
         if bundle is not None:
             self._init_from_bundle(bundle)
             return
 
         from whmr_tpu_torch.models.regressor import body_consts_from_assets
         from whmr_tpu_torch.models.whmr import WHMR
+        from whmr_tpu_torch.parallel.serving import ServingGrid, replicate
 
         model = WHMR(cfg, dtype=dtype or torch.float32)
         model.load_state_dict(variables, strict=True)
-        self.model = model.to(self.device).eval().requires_grad_(False)
-        self.consts = body_consts_from_assets(assets, device=self.device)
+        grid = mesh if mesh is not None else ServingGrid([[self.device]])
+        # (model, body constants, normaliser) of each replica, on its row's
+        # lead device; the normaliser's statistics on the card once (a
+        # per-call copy from pageable memory could make the host wait on
+        # the stream)
+        self._replicas = [
+            (rep, body_consts_from_assets(assets, device=row[0]), Normalize().to(row[0]))
+            for rep, row in zip(replicate(model, grid), grid.devices)
+        ]
+        del model
+        # the lead replica: CamCalib's per-frame entry and the IUV detector
+        self.model, self.consts, self._norm = self._replicas[0]
         self._served = None
-        # its statistics on the card once: a per-call copy from pageable
-        # memory could make the host wait on the stream
-        self._norm = Normalize().to(self.device)
 
     @torch.inference_mode()
-    def _fwd(self, batch: Dict[str, np.ndarray], full_u8: Optional[np.ndarray]) -> Dict[str, torch.Tensor]:
+    def _fwd(self, batch: Dict[str, np.ndarray], full_u8: Optional[np.ndarray]):
         """The forward on a host crop batch (uint8 crops; a per-crop
         `cam_rotmat` in the coalesced-serving path) and an optional uint8
-        CamCalib frame -> the OUTPUT_KEYS dict on the device, returned before
-        the card finishes. The frame ships once; its rotation broadcasts
-        over the crops."""
-        dev = {k: to_device(v, self.device) for k, v in batch.items() if k != "valid"}
-        full_x = None if full_u8 is None else self._norm(to_device(full_u8, self.device))
-        out = self.model(
-            self.consts, self._norm(dev["x"]), dev["center"], dev["scale"], dev["bbox_height"],
+        CamCalib frame -> one OUTPUT_KEYS dict on the device a replica, each
+        on its block of rows (`export.fetch` joins them), returned before the
+        card finishes. The frame ships once to each replica; its rotation
+        broadcasts over the crops."""
+        from whmr_tpu_torch.parallel.serving import split_rows
+
+        batch = {k: v for k, v in batch.items() if k != "valid"}
+        return [self._replica_fwd(rep, part, full_u8)
+                for rep, part in zip(self._replicas, split_rows(batch, len(self._replicas)))]
+
+    @staticmethod
+    def _replica_fwd(replica, batch, full_u8) -> Dict[str, torch.Tensor]:
+        model, consts, norm = replica
+        device = norm.mean.device
+        dev = {k: to_device(v, device) for k, v in batch.items()}
+        full_x = None if full_u8 is None else norm(to_device(full_u8, device))
+        out = model(
+            consts, norm(dev["x"]), dev["center"], dev["scale"], dev["bbox_height"],
             dev["orig_shape"], dev["bbox_info"], train=False, full_x=full_x,
             cam_rotmat=dev.get("cam_rotmat"),
         )
@@ -264,7 +309,8 @@ class DemoPipeline:
     def _cam_fwd(self, full_u8: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """CamCalib alone on a (1, H, W, 3) uint8 frame -> (cam_rotmat,
         render_rotmat) on the device: one call per unique frame in the
-        coalesced-serving path (serve_cli.BatchingExecutor)."""
+        coalesced-serving path (serve_cli.BatchingExecutor), on the lead
+        replica with a mesh."""
         return self.model.camcalib(self._norm(to_device(full_u8, self.device)))
 
     def _init_from_bundle(self, bundle: str) -> None:

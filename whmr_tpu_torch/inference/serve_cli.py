@@ -39,8 +39,12 @@ trace the full frame into the batch-global graph and fall back to one
 device call per request behind a lock. `GET /stats` reports the
 coalescing ratio and the CamCalib cache hit rate.
 
-Scale-out (`--data_parallel`, `--tensor_parallel`) comes with the
-parallelism slice (slice 5) and raises NotImplementedError.
+Scale-out: `--data_parallel N --tensor_parallel M` serves the live model
+from this one process over a grid of N x M devices (`parallel/serving.py`):
+each device batch splits into N row blocks, one to each model replica, and
+each replica's ViT blocks split over its row's M devices. The executor,
+the CamCalib cache, `/reload` (which rebuilds on the same grid) and the
+drain are unchanged; `/meta` reports the grid's shape.
 
 Warm weight swap: `POST /reload` (optional json body
 {"checkpoint": dir} or {"bundle": dir}; default re-reads the configured
@@ -77,9 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(same semantics as whmr-demo)")
     p.add_argument("--max_people", type=int, default=8)
     p.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                   help="shard each device batch over N devices (not ported yet: slice 5)")
+                   help="split each device batch over N model replicas, one a device row")
     p.add_argument("--tensor_parallel", type=int, default=0, metavar="M",
-                   help="split ViT block weights over M devices (not ported yet: slice 5)")
+                   help="split ViT block weights over the M devices of each row")
     p.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
                    help="live-model compute dtype (bundles fix theirs at export)")
     p.add_argument("--no_camcalib", action="store_true")
@@ -634,8 +638,7 @@ class WHMRServer:
                 # same default main() constructs, else a bundle→checkpoint
                 # reload keeps serving the RETIRED bundle's meta (dtypes,
                 # batch capacity, platforms) from /meta
-                self.meta = {"source": "live checkpoint",
-                             "crop_hw": list(new_pipe.cfg.crop_hw)}
+                self.meta = live_meta(new_pipe)
             old, self.pipeline = self.pipeline, new_pipe
             if self.executor is not None:
                 # a re-exported bundle may carry a different batch capacity
@@ -658,6 +661,15 @@ class WHMRServer:
 
 class _ReloadUnsupported(RuntimeError):
     pass
+
+
+def live_meta(pipeline) -> dict:
+    """`/meta` of a live-checkpoint pipeline (it carries no meta.json): its
+    crop size and, across cards, its grid's shape."""
+    meta = {"source": "live checkpoint", "crop_hw": list(pipeline.cfg.crop_hw)}
+    if pipeline.mesh is not None:
+        meta["mesh"] = pipeline.mesh.shape
+    return meta
 
 
 def _warmup_pipeline(pipeline, coalesced: bool = False) -> None:
@@ -731,8 +743,7 @@ def build_server(argv=None) -> WHMRServer:
     pipeline = make_pipeline()
 
     meta = dict(getattr(getattr(pipeline, "_served", None), "meta", None)
-                or {"source": "live checkpoint",
-                    "crop_hw": list(pipeline.cfg.crop_hw)})
+                or live_meta(pipeline))
     executor = None
     can_coalesce = (not pipeline.use_camcalib
                     or getattr(pipeline, "_cam_fwd", None) is not None)
@@ -748,7 +759,8 @@ def build_server(argv=None) -> WHMRServer:
     print(f"[serve] WHMR listening on http://{args.host}:{httpd.server_address[1]} "
           f"(detector={kind}, max_people={args.max_people}, "
           f"frozen={pipeline.model is None}, "
-          f"coalescing={executor is not None}, device={args.device})", flush=True)
+          f"coalescing={executor is not None}, device={args.device}, "
+          f"mesh={pipeline.mesh and pipeline.mesh.shape})", flush=True)
     return server
 
 

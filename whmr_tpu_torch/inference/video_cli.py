@@ -102,9 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bbox_file", default=None)
     p.add_argument("--max_people", type=int, default=8)
     p.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                   help="shard each crop batch over N devices (not ported yet: slice 5)")
+                   help="split each crop batch over N model replicas, one a device row")
     p.add_argument("--tensor_parallel", type=int, default=0, metavar="M",
-                   help="split ViT block weights over M devices (not ported yet: slice 5)")
+                   help="split ViT block weights over the M devices of each row")
     p.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
                    help="live-model compute dtype")
     p.add_argument("--device", default="cuda",

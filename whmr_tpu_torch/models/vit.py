@@ -6,12 +6,21 @@ position embedding with the cls row folded into every token, pre-LN blocks
 with LayerNorm eps 1e-6, and a final LayerNorm. In training each block's
 residual branches pass through stochastic depth (drop path) at a rate rising
 linearly from 0 at the first block to `drop_path_rate` at the last.
+
+With `remat` (whmr_tpu's `nn.remat` of each block, the memory knob of the
+ViT-L/H presets) each block runs under `torch.utils.checkpoint` while
+autograd records: its activations are recomputed in the backward instead of
+stored. A block's two drop-path masks are drawn before the checkpointed call
+and passed in, so the recompute reuses them (checkpoint's RNG-state
+preservation does not cover an explicit `torch.Generator`) and the
+generator's stream is the plain path's.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from whmr_tpu_torch.config import ViTConfig
 from whmr_tpu_torch.models.layers import MLP, Attention, Conv2d, LayerNorm, batch_rand
@@ -30,13 +39,19 @@ class DropPath(nn.Module):
         super().__init__()
         self.p = p
 
-    def forward(self, x, generator=None):
+    def draw(self, x, generator=None):
+        """The keep mask for a branch shaped like `x`, or None when the
+        branch passes unchanged (eval, or p = 0)."""
         if not self.training or self.p == 0.0:
-            return x
-        keep = 1.0 - self.p
+            return None
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = batch_rand(shape, generator, x.device, self.data_group) < keep
-        return x / keep * mask.to(x.dtype)
+        return batch_rand(shape, generator, x.device, self.data_group) < 1.0 - self.p
+
+    def apply(self, x, mask):
+        return x if mask is None else x / (1.0 - self.p) * mask.to(x.dtype)
+
+    def forward(self, x, generator=None):
+        return self.apply(x, self.draw(x, generator))
 
 
 class ViTBlock(nn.Module):
@@ -49,9 +64,15 @@ class ViTBlock(nn.Module):
         self.mlp = MLP(dim, int(dim * mlp_ratio), dim, dtype=dtype)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, generator=None):
-        x = x + self.drop_path(self.attn(self.norm1(x)), generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+    def draw_masks(self, x, generator=None):
+        """The block's drop-path masks, attention's then the MLP's, in the
+        order the plain forward draws them."""
+        return self.drop_path.draw(x, generator), self.drop_path.draw(x, generator)
+
+    def forward(self, x, generator=None, masks=None):
+        m_attn, m_mlp = masks if masks is not None else self.draw_masks(x, generator)
+        x = x + self.drop_path.apply(self.attn(self.norm1(x)), m_attn)
+        return x + self.drop_path.apply(self.mlp(self.norm2(x)), m_mlp)
 
 
 class PatchEmbed(nn.Module):
@@ -71,6 +92,7 @@ class ViTBackbone(nn.Module):
         super().__init__()
         hp, wp = cfg.grid_hw
         self.compute_dtype = dtype
+        self.remat = cfg.remat
         self.patch_embed = PatchEmbed(cfg, dtype=dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, hp * wp + 1, cfg.embed_dim))
         self.blocks = nn.ModuleList(
@@ -87,8 +109,12 @@ class ViTBackbone(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # (B, N, C)
         pos = self.pos_embed.to(self.compute_dtype)
         x = x + pos[:, 1:] + pos[:, :1]  # cls-slot folding (vit.py:317-320)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, generator)
+            if remat:
+                x = checkpoint(blk, x, None, blk.draw_masks(x, generator), use_reentrant=False)
+            else:
+                x = blk(x, generator)
         x = self.last_norm(x)
         return x.reshape(b, hp, wp, c).permute(0, 3, 1, 2)
 
