@@ -70,10 +70,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    live parameters, BatchNorm buffers and Adam moments bit for bit. Then a
    SIGTERM after the loader's second batch: SystemExit(0) with a checkpoint
    at step 2, batch 2, and a resume that ends the epoch at step 3. Times the
-   fit's ms a step beside the bare step's and its host time by span
-   (profiling.Timer), a blocking and an async checkpoint save, the save's
-   host snapshot alone into fresh and into reused host pages, and the
-   checkpoint's size. Its run directories live under build/ and are deleted
+   fit's ms a step beside the bare step's and its host time by span (the
+   tracer's `fit.*` spans), a blocking and an async checkpoint save, the
+   save's host snapshot alone into fresh and into reused host pages, and
+   the checkpoint's size. Its run directories live under build/ and are deleted
    at the end.
 8. CLI path: the two entry points a user runs, in-process through their
    `main(argv)`, at full width (WHMRConfig(), ViT-B, 3 MAF steps) on a
@@ -235,7 +235,6 @@ from whmr_tpu_torch.inference.renderer import render_overlay
 from whmr_tpu_torch.inference.part_segm import render_part_segmentation
 from whmr_tpu_torch.training import cli as train_cli
 from whmr_tpu_torch.training import train_step as ts
-from whmr_tpu_torch.training import trainer as trainer_module
 from whmr_tpu_torch.training.gt_renderer import build_render_consts, raster_inputs
 from whmr_tpu_torch.training.trainer import Trainer
 from whmr_tpu_torch.utils import convert_cli, profiling
@@ -363,23 +362,41 @@ RES50_VERTS_TOL, RES50_LOSS_RTOL = 2e-3, 2e-3
 GRAPHORMER_BF16_RTOL, GRAPHORMER_CPU_TOL = 5e-2, 1e-4
 
 
-# Each kernel wrapper's launch count, by the name the kernels line gives it.
-WRAPPERS = {"attention": k1.attention, "fused_attention": k1.fused_attention, "rasterizer": k2.rasterize_kernel}
-# The attention wrappers also count their tensor-core launches.
-MMA_WRAPPERS = {"attention": k1.attention, "fused_attention": k1.fused_attention}
+# Each kernel's launch counter (utils/profiling.py), by the name the kernels
+# line gives it.
+LAUNCHES = {"attention": "k1.launches", "fused_attention": "k3.launches", "rasterizer": "k2.launches"}
+# The attention kernels also count their tensor-core launches.
+MMA_LAUNCHES = {"attention": "k1.mma_launches", "fused_attention": "k3.mma_launches"}
+
+
+_LAUNCHES_BEFORE = {}
 
 
 def reset_launches():
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    for fn in MMA_WRAPPERS.values():
-        fn.mma_launches = 0
+    """Starts a count of launches (the counters as they read now) and
+    forgets the tracer's spans; the serving executors' counters run on."""
+    _LAUNCHES_BEFORE.update({c: profiling.counter(c) for c in (*LAUNCHES.values(), *MMA_LAUNCHES.values())})
+    profiling.reset(counters=False)
 
 
 def read_launches():
-    """{name: launches} and {name + ".mma": tensor-core launches}."""
-    out = {name: fn.launches for name, fn in WRAPPERS.items()}
-    out.update({f"{name}.mma": fn.mma_launches for name, fn in MMA_WRAPPERS.items()})
+    """{name: launches} and {name + ".mma": tensor-core launches} since
+    `reset_launches`."""
+    def since(c):
+        return profiling.counter(c) - _LAUNCHES_BEFORE.get(c, 0)
+
+    out = {name: since(c) for name, c in LAUNCHES.items()}
+    out.update({f"{name}.mma": since(c) for name, c in MMA_LAUNCHES.items()})
+    return out
+
+
+def fit_spans():
+    """{span: [host seconds, in order]} of the tracer's `fit.*` spans (a
+    step's enqueue, the metric read-back, a save, a loader fetch)."""
+    out = {}
+    for r in profiling.records():
+        if r["name"].startswith("fit."):
+            out.setdefault(r["name"], []).append(r["host_ms"] * 1e-3)
     return out
 
 
@@ -1141,21 +1158,23 @@ def phase_trainer(cfg, consts, train_ms):
         # enqueue, the host launching its kernels while the card runs
         # behind; the metric read-back; the saves) and each host batch the
         # loader hands device_prefetch, which fetches 2 ahead.
-        trainer.timer = timer = profiling.Timer()
-
         def timed_loader(epoch):
             it = iter(loader_factory(epoch))
 
             def fetch():
-                with timer.span("loader"):
+                with profiling.span("fit.loader"):
                     return next(it, None)
             return iter(fetch, None)
 
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        trainer.fit(timed_loader, num_epochs=2, validate_fn=timed_validate, log_every=1, save_every=4)
-        torch.cuda.synchronize()
-        trainer.timer = None
+        profiling.enable()
+        try:
+            trainer.fit(timed_loader, num_epochs=2, validate_fn=timed_validate, log_every=1, save_every=4)
+            torch.cuda.synchronize()
+        finally:
+            profiling.disable()
+        spans = fit_spans()
         peak = profiling.device_memory_stats()["allocated_bytes.all.peak"] / 2**30
         launches = read_launches()
         steps = 2 * TRAINER_STEPS_PER_EPOCH
@@ -1201,9 +1220,9 @@ def phase_trainer(cfg, consts, train_ms):
             f"{[round((t[i + 1] - t[i]) * 1e3, 2) for i in range(1, steps)]} (3->4 holds the validation and "
             f"the epoch save; 4->6 the step-4 write in flight); bare train_step {train_ms:.2f} ms a step in "
             f"this run; peak memory {peak:.2f} GiB")
-        log("trainer: host ms in the fit by span, in order (step: steps 1-6; log: the read-back after each; "
-            "save: steps 3, 4 (async), 6; loader: 4 fetches an epoch, the last finding its end): "
-            + "; ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in timer.records.items()))
+        log("trainer: host ms in the fit by span, in order (fit.step: steps 1-6; fit.log: the read-back after "
+            "each; fit.save: steps 3, 4 (async), 6; fit.loader: 4 fetches an epoch, the last finding its end): "
+            + "; ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in spans.items()))
 
         # The checkpoint, and what its background write costs the loop: the
         # trainer's step on one fed batch, synchronised, without and with a
@@ -1289,26 +1308,14 @@ def phase_preemption(cfg, root, loader, loader_factory):
         f"resume ran the epoch's last batch to step {resumed.state.step}")
 
 
-class _TimedTrainer(Trainer):
-    """The port's Trainer with its opt-in profiling.Timer set, so that
-    whmr-train's loop records its host spans ("step", "log", "save")."""
-
-    last = None
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.timer = profiling.Timer()
-        _TimedTrainer.last = self
-
-
 class _TimedLoader(BatchLoader):
-    """BatchLoader whose batches the training loop waits for under the
-    trainer's "loader" span (device_prefetch takes 2 ahead)."""
+    """BatchLoader whose batches the training loop waits for under a
+    `fit.loader` span (device_prefetch takes 2 ahead)."""
 
     def __iter__(self):
         it = super().__iter__()
         while True:
-            with _TimedTrainer.last.timer.span("loader"):
+            with profiling.span("fit.loader"):
                 batch = next(it, None)
             if batch is None:
                 return
@@ -1355,10 +1362,11 @@ def phase_cli(consts, train_ms, fit_ms, root):
             "--steps_per_epoch", str(CLI_TRAIN_STEPS), "--log_every", "1", "--device", "cuda"]
     sigterm = signal.getsignal(signal.SIGTERM)  # main installs a preemption handler
     with contextlib.ExitStack() as stack:
-        stack.enter_context(mock.patch.object(trainer_module, "Trainer", _TimedTrainer))
         stack.enter_context(mock.patch.object(loader_module, "BatchLoader", _TimedLoader))
         stack.callback(signal.signal, signal.SIGTERM, sigterm)
+        stack.callback(profiling.disable)
         reset_launches()
+        profiling.enable()
         t0 = time.perf_counter()
         trainer = train_cli.main(argv)
         torch.cuda.synchronize()
@@ -1375,7 +1383,7 @@ def phase_cli(consts, train_ms, fit_ms, root):
           "non-finite whmr-train metric records")
     ckpt = root / "train" / "checkpoints" / str(CLI_TRAIN_STEPS) / "payload.pt"
     check(ckpt.is_file(), f"no whmr-train checkpoint at {ckpt}")
-    spans = trainer.timer.records
+    spans = fit_spans()
     gaps = [(recs[i + 1]["time"] - recs[i]["time"]) * 1e3 for i in range(len(recs) - 1)]
     log(f"cli: whmr-train losses {[round(r['loss'], 3) for r in recs]}; checkpoint {ckpt.stat().st_size / 1e9:.3f} GB; "
         f"{np.mean(gaps):.2f} ms a step between metric records {[round(g, 2) for g in gaps]} (host clock, each "
@@ -1383,7 +1391,6 @@ def phase_cli(consts, train_ms, fit_ms, root):
         f"{fit_ms:.2f} ms a step in this run; host ms by span: "
         + "; ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in spans.items()))
     del trainer
-    _TimedTrainer.last = None
     torch.cuda.empty_cache()
 
     # The loader alone: one epoch of B=64 batches off disk, decode and
@@ -2710,9 +2717,10 @@ def branch_hmr(root, paths, launches):
             "--steps_per_epoch", str(BRANCH_STEPS), "--log_every", "1", "--device", "cuda"]
     sigterm = signal.getsignal(signal.SIGTERM)
     with contextlib.ExitStack() as stack:
-        stack.enter_context(mock.patch.object(trainer_module, "Trainer", _TimedTrainer))
         stack.callback(signal.signal, signal.SIGTERM, sigterm)
+        stack.callback(profiling.disable)
         reset_launches()
+        profiling.enable()
         t0 = time.perf_counter()
         trainer = train_cli.main(argv)
         torch.cuda.synchronize()
@@ -2724,14 +2732,13 @@ def branch_hmr(root, paths, launches):
     recs = [r for r in _records(trainer.metrics.path) if "loss" in r]
     check(len(recs) == BRANCH_STEPS and all(np.isfinite(v) for r in recs for k, v in r.items() if k != "time"),
           f"whmr-train --regressor hmr metric records {recs}")
-    steps = trainer.timer.records.get("step", [])
+    steps = fit_spans().get("fit.step", [])
     gaps = [(recs[i + 1]["time"] - recs[i]["time"]) * 1e3 for i in range(len(recs) - 1)]
     log(f"branches (c): whmr-train --regressor hmr --bf16, {BRANCH_STEPS} steps of B={CLI_TRAIN_BATCH}: {train_s:.1f} s "
         f"in main; launches {n}; losses {[round(r['loss'], 3) for r in recs]}; {np.mean(gaps):.2f} ms a step between "
         f"metric records {[round(x, 2) for x in gaps]} (host clock, each with a metric read-back); host ms of the "
         f"step span {[round(x * 1e3, 1) for x in steps]}")
     del trainer
-    _TimedTrainer.last = None
     torch.cuda.empty_cache()
 
     common = ["--checkpoint", str(root / "hmr" / "checkpoints"), "--dataset_npz", paths["npz"], "--img_dir",

@@ -15,6 +15,7 @@ from whmr_tpu_torch.ops import attention as tattn
 from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.ops import rasterizer_kernel as k2
 from whmr_tpu_torch.training.gt_renderer import build_render_consts, raster_inputs
+from whmr_tpu_torch.utils.profiling import counter
 from whmr_tpu_torch.utils.testing import make_ragged_raster_case
 
 
@@ -24,6 +25,9 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU with CUDA (run on the card)")
     return torch.device("cuda")
 
+
+# The tracer's counter prefix of each attention wrapper's kernel.
+KERNEL = {"attention": "k1", "fused_attention": "k3"}
 
 # The forward's head (ViT-B), ViT-H's head (D = 80, not a power of 4, so
 # the fp32 scale is not exact in bf16), the tensor-core edge N = 256,
@@ -43,10 +47,10 @@ ATTENTION_SHAPES = [
 def test_attention_kernel_matches_plain(cuda_device, dtype, shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(*shape, device=cuda_device, generator=g, dtype=dtype) for _ in range(3))
-    before = tattn.attention.launches
+    before = counter("k1.launches")
     got = tattn.attention(q, k, v)
     torch.cuda.synchronize()
-    assert tattn.attention.launches == before + 1
+    assert counter("k1.launches") == before + 1
     want = tattn.attention_reference(q, k, v)
     # fp32: sums in another order. bf16: one output ulp (2**-8 relative).
     err = (got.float() - want.float()).abs()
@@ -70,10 +74,10 @@ def test_fused_attention_kernel_matches_plain(cuda_device, dtype, shape):
     version it shares with K1, at K1's tolerance."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q, k, v = (torch.randn(*shape, device=cuda_device, generator=g, dtype=dtype) for _ in range(3))
-    before = (tattn.attention.launches, tattn.fused_attention.launches)
+    before = (counter("k1.launches"), counter("k3.launches"))
     got = tattn.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert (tattn.attention.launches, tattn.fused_attention.launches) == (before[0], before[1] + 1)
+    assert (counter("k1.launches"), counter("k3.launches")) == (before[0], before[1] + 1)
     want = tattn.attention_reference(q, k, v)
     err = (got.float() - want.float()).abs()
     tol = 2e-5 if dtype == torch.float32 else 2**-7 * want.float().abs().clamp(min=1.0)
@@ -115,10 +119,10 @@ def test_fused_attention_equals_attention_fp32(cuda_device, shape):
     g = torch.Generator(device=cuda_device).manual_seed(4)
     q, k, v = (torch.randn(*shape, device=cuda_device, generator=g) for _ in range(3))
     assert tattn._variant(shape, torch.float32) == "mma"
-    before = (tattn.attention.mma_launches, tattn.fused_attention.mma_launches)
+    before = (counter("k1.mma_launches"), counter("k3.mma_launches"))
     a, b = tattn.attention(q, k, v), tattn.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert (tattn.attention.mma_launches, tattn.fused_attention.mma_launches) == (before[0] + 1, before[1] + 1)
+    assert (counter("k1.mma_launches"), counter("k3.mma_launches")) == (before[0] + 1, before[1] + 1)
     assert torch.equal(a, b)
     assert (a - tattn.attention_reference(q, k, v)).abs().max().item() <= 2e-5
 
@@ -139,10 +143,10 @@ def test_tensor_core_kernels_take_unaligned_inputs(cuda_device, wrapper):
         buf[1:] = x.reshape(-1)
         shifted.append(buf[1:].view(shape))
     assert all(x.is_contiguous() and x.data_ptr() % 16 == 2 for x in shifted)
-    fn = getattr(tattn, wrapper)
-    before = fn.mma_launches
+    fn, kernel = getattr(tattn, wrapper), KERNEL[wrapper]
+    before = counter(kernel + ".mma_launches")
     got = fn(*shifted)
-    assert fn.mma_launches == before + 1
+    assert counter(kernel + ".mma_launches") == before + 1
     assert torch.equal(got, fn(*aligned))
     want = tattn.attention_reference(*aligned)
     assert bool(((got.float() - want.float()).abs() <= 2**-7 * want.float().abs().clamp(min=1.0)).all())
@@ -152,11 +156,11 @@ def test_tensor_core_kernels_take_unaligned_inputs(cuda_device, wrapper):
 @pytest.mark.parametrize("wrapper", ["attention", "fused_attention"])
 def test_tensor_core_launches_counted(cuda_device, wrapper):
     """bf16 at N <= 256 (D % 8 == 0) and fp32 at N <= 192 (D % 4 == 0)
-    launch the tensor-core variant (counted in `.mma_launches` and
-    `.launches`); bf16 above N = 256 or with D % 8 != 0, and fp32 above N =
-    192 or with D % 4 != 0, launch the CUDA-core variant (`.launches`
-    only)."""
-    fn = getattr(tattn, wrapper)
+    launch the tensor-core variant (counted in the tracer's `<kernel>.mma_launches`
+    and `<kernel>.launches`); bf16 above N = 256 or with D % 8 != 0, and fp32
+    above N = 192 or with D % 4 != 0, launch the CUDA-core variant
+    (`<kernel>.launches` only)."""
+    fn, kernel = getattr(tattn, wrapper), KERNEL[wrapper]
     cases = [((2, 3, 256, 64), torch.bfloat16, 1), ((2, 3, 1, 64), torch.bfloat16, 1),
              ((2, 3, 192, 64), torch.float32, 1), ((2, 3, 192, 128), torch.float32, 1),
              ((2, 3, 64, 20), torch.float32, 1), ((2, 3, 257, 64), torch.bfloat16, 0),
@@ -164,9 +168,10 @@ def test_tensor_core_launches_counted(cuda_device, wrapper):
              ((2, 3, 256, 64), torch.float32, 0), ((2, 3, 64, 18), torch.float32, 0)]
     for shape, dtype, mma in cases:
         x = torch.randn(*shape, device=cuda_device, dtype=dtype)
-        before = (fn.launches, fn.mma_launches)
+        before = (counter(kernel + ".launches"), counter(kernel + ".mma_launches"))
         fn(x, x, x)
-        assert (fn.launches, fn.mma_launches) == (before[0] + 1, before[1] + mma), (shape, dtype)
+        assert (counter(kernel + ".launches"), counter(kernel + ".mma_launches")) == (before[0] + 1, before[1] + mma), \
+            (shape, dtype)
         assert tattn._variant(shape, dtype) == ("mma" if mma else "rows")
 
 
@@ -197,10 +202,10 @@ def test_rasterizer_kernel_ragged(cuda_device, tile_hw):
     arrays, kw = make_ragged_raster_case()
     verts, z, attrs = (torch.from_numpy(a).to(cuda_device) for a in arrays[:3])
     faces = arrays[3]
-    before = k2.rasterize_kernel.launches
+    before = counter("k2.launches")
     got = k2.rasterize_kernel(verts, z, attrs, faces, tile_hw=tile_hw, **kw)
     torch.cuda.synchronize()
-    assert k2.rasterize_kernel.launches == before + 1
+    assert counter("k2.launches") == before + 1
     _check_k2(got, k2.rasterize_kernel_reference(verts, z, attrs, faces, **kw))
     assert got.mask.any() and not got.mask.all()
 
@@ -363,12 +368,12 @@ def test_attention_custom_op_is_the_kernel(cuda_device):
     K1, counted, and gives attention()'s result bit for bit."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(2, 12, 192, 64, device=cuda_device, generator=g, dtype=torch.bfloat16) for _ in range(3))
-    before = (tattn.attention.launches, tattn.attention.mma_launches)
+    before = (counter("k1.launches"), counter("k1.mma_launches"))
     a = tattn.attention(q, k, v)
     b = torch.ops.whmr.attention(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    assert (tattn.attention.launches, tattn.attention.mma_launches) == (before[0] + 2, before[1] + 2)
+    assert (counter("k1.launches"), counter("k1.mma_launches")) == (before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.cuda
@@ -386,11 +391,11 @@ def test_exported_vit_block_keeps_k1(cuda_device):
         program = torch.export.export(vit, (x,), dynamic_shapes=({0: torch.export.Dim("B")},), strict=False)
     run = program.module()
     x = torch.randn(3, 3, 256, 192, device=cuda_device)
-    before = (tattn.attention.launches, tattn.attention.mma_launches)
+    before = (counter("k1.launches"), counter("k1.mma_launches"))
     with torch.no_grad():
         got = run(x)
         torch.cuda.synchronize()
-        launched = (tattn.attention.launches - before[0], tattn.attention.mma_launches - before[1])
+        launched = (counter("k1.launches") - before[0], counter("k1.mma_launches") - before[1])
         want = vit(x)
     assert launched == (1, 1)
     assert torch.equal(got, want)

@@ -30,6 +30,7 @@ from whmr_tpu.ops import rasterizer as jr
 from whmr_tpu.ops import rasterizer_pallas as jp
 from whmr_tpu_torch.ops import rasterizer as tr
 from whmr_tpu_torch.ops import rasterizer_kernel as k2
+from whmr_tpu_torch.utils import profiling
 
 from torch_port_util import release_memory, n, t  # noqa: F401 (autouse fixture)
 
@@ -105,10 +106,10 @@ def test_reference_matches_rasterize_pallas(case):
     _check(got, want, exact)
     assert n(got.mask).any() and not n(got.mask).all()
     # The wrapper takes the plain version for CPU tensors, and counts no launch.
-    before = k2.rasterize_kernel.launches
+    before = profiling.counter("k2.launches")
     wrapped = k2.rasterize_kernel(t(verts), t(z), t(attrs), faces, resolution=res, chunk=chunk,
                                   tile_p=tile_p, tile_hw=tile_hw, origin=origin)
-    assert k2.rasterize_kernel.launches == before
+    assert profiling.counter("k2.launches") == before
     for a, b in zip(wrapped, got):
         assert torch.equal(a, b)
 

@@ -5,7 +5,7 @@
   and mid-epoch resume, log_every across epochs, LR decay at the epoch
   boundary and its restore on resume, the profile window, grad_accum, the
   validate glue with global_pose, best-checkpoint tracking and the SIGTERM
-  preemption save; and the loop's profiling.Timer spans. A resumed state is compared bit for bit: the checkpoint
+  preemption save; and the loop's spans (`fit.*`, utils/profiling.py). A resumed state is compared bit for bit: the checkpoint
   is a copy.
 - The weight bridge: a torch .pt written from `state_dict_from_flax`, a bare
   ViT backbone and a port checkpoint directory load through
@@ -165,25 +165,42 @@ def test_profile_window_and_grad_accum(tmp_path, accum):
     last = tr.train_epoch(batch_iter(cfg, n_batches=3, batch=8), log_every=0)
     assert tr._profile["done"] and last == {}
     assert tr.state.step == 3 and tr.state.opt_state.count == 3
-    traces = [f for f in os.listdir(tdir) if f.endswith(".json")]
+    traces = [f for f in os.listdir(tdir) if f.startswith("trace_") and f.endswith(".json")]
     assert len(traces) == 1
     with open(tdir / traces[0]) as f:
         assert json.load(f)["traceEvents"]
+    # the tracer's summary of the window beside it: the one traced step
+    with open(tdir / f"spans_{os.getpid()}.json") as f:
+        spans = json.load(f)["spans"]
+    assert spans["fit.step"]["count"] == 1 and spans["train.step"]["count"] == 1
+    assert spans["train.forward"]["count"] == accum and spans["whmr.forward"]["count"] == accum
+    assert not profiling.enabled()
 
 
 
 def test_timer_spans_and_memory_stats(tmp_path):
     tr = _trainer(tmp_path / "timed")
-    tr.timer = profiling.Timer()
-    tr.train_epoch(batch_iter(tiny_config(), n_batches=3), log_every=2, save_every=2)
+    profiling.reset()
+    profiling.enable()
+    try:
+        tr.train_epoch(batch_iter(tiny_config(), n_batches=3), log_every=2, save_every=2)
+    finally:
+        profiling.disable()
     tr.ckpt.wait_until_finished()
-    # one span a step, one a metric read-back (step 2), one a save (step 2)
-    assert {k: len(v) for k, v in tr.timer.records.items()} == {"step": 3, "log": 1, "save": 1}
-    summary = tr.timer.summary()
-    assert all(v > 0 for v in summary.values())
-    tr.timer.dump(str(tmp_path / "spans.json"))
+    # one span a step, one a metric read-back (step 2), one a save (step 2),
+    # each a root; a train step in each step span
+    fit = [r for r in profiling.records() if r["name"].startswith("fit.")]
+    assert [r["name"] for r in fit] == ["fit.step", "fit.step", "fit.log", "fit.save", "fit.step"]
+    assert all(r["parent"] is None and r["host_ms"] > 0 for r in fit)
+    steps = profiling.records("train.step")
+    assert [r["root"] for r in steps] == [r["id"] for r in fit if r["name"] == "fit.step"]
+    summary = profiling.summary()
+    assert {k: v["count"] for k, v in summary["spans"].items() if k.startswith("fit.")} == \
+        {"fit.step": 3, "fit.log": 1, "fit.save": 1}
+    profiling.dump(str(tmp_path / "spans.json"))
     with open(tmp_path / "spans.json") as f:
-        assert json.load(f) == pytest.approx(summary)
+        assert json.load(f) == summary
+    profiling.reset()
     # without a card there are no allocator counters
     assert profiling.device_memory_stats() is None
 

@@ -37,7 +37,10 @@ the reference's own per-image protocol (tester.py:100-104,151-162) at
 coalesced throughput. Batch-mode camcalib bundles (bare `--camcalib`)
 trace the full frame into the batch-global graph and fall back to one
 device call per request behind a lock. `GET /stats` reports the
-coalescing ratio and the CamCalib cache hit rate.
+coalescing ratio and the CamCalib cache hit rate (the executor's tracer
+counters, utils/profiling.py) and, while the tracer is on, the median and
+95th percentile of `serve.queue_wait`: a request's time from its enqueue to
+the worker's dequeue, a span under the device batch's `whmr.forward` root.
 
 Scale-out: `--data_parallel N --tensor_parallel M` serves the live model
 from this one process over a grid of N x M devices (`parallel/serving.py`):
@@ -60,9 +63,18 @@ from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import queue
 import threading
+import time
+
+from whmr_tpu_torch.utils import profiling
+
+# The executor's statistics, each a tracer counter under the executor's
+# own prefix ("serve.<n>."), so that executors in one process count apart.
+STATS = ("requests", "device_batches", "coalesced_requests", "crops", "camcalib_calls", "camcalib_cache_hits")
+_EXECUTORS = itertools.count()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -175,7 +187,7 @@ def _parse_infer_body(body: bytes):
 
 class _Request:
     __slots__ = ("batch", "n", "dets", "event", "result", "error",
-                 "cancelled", "render_rotmat")
+                 "cancelled", "render_rotmat", "enqueued_ns", "dequeued_ns")
 
     def __init__(self, batch, n, dets, render_rotmat=None):
         self.batch = batch      # unpadded host arrays, n rows each
@@ -189,6 +201,9 @@ class _Request:
         # by the per-frame CamCalib call (the batched graph only sees
         # cam_rotmat and would echo it back as render_rotmat)
         self.render_rotmat = render_rotmat
+        # host clock (perf_counter_ns) of the submit's enqueue and of the
+        # worker's dequeue: the `serve.queue_wait` span
+        self.enqueued_ns = self.dequeued_ns = None
 
 
 class BatchingExecutor:
@@ -226,9 +241,7 @@ class BatchingExecutor:
         self.q: "queue.Queue[_Request]" = queue.Queue()
         self._carry = None  # request that did not fit the previous batch
         self._stop = threading.Event()
-        self.stats = {"requests": 0, "device_batches": 0,
-                      "coalesced_requests": 0, "crops": 0,
-                      "camcalib_calls": 0, "camcalib_cache_hits": 0}
+        self._prefix = f"serve.{next(_EXECUTORS)}."
         # Per-frame CamCalib cache: CamCalib runs ONCE per unique
         # image (content-hashed), its rotation rides each crop row as
         # `cam_rotmat`, and crops from different frames share device
@@ -240,6 +253,14 @@ class BatchingExecutor:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         if start:
             self._thread.start()
+
+    @property
+    def stats(self) -> dict:
+        """The executor's statistics by `STATS` key, from its counters."""
+        return {k: profiling.counter(self._prefix + k) for k in STATS}
+
+    def _count(self, key: str, n: int = 1) -> None:
+        profiling.count(self._prefix + key, n)
 
     def _camcalib_for(self, image):
         """(cam_rotmat (3,3), render_rotmat (3,3)) for a frame, cached by
@@ -256,7 +277,7 @@ class BatchingExecutor:
         with self._cam_lock:
             hit = self._cam_cache.get(key)
             if hit is not None:
-                self.stats["camcalib_cache_hits"] += 1
+                self._count("camcalib_cache_hits")
                 return hit
         from whmr_tpu_torch.inference.export import fetch
 
@@ -268,7 +289,7 @@ class BatchingExecutor:
         host = fetch({"cam": cam, "render": render})
         out = (host["cam"][0], host["render"][0])
         with self._cam_lock:
-            self.stats["camcalib_calls"] += 1
+            self._count("camcalib_calls")
             if len(self._cam_cache) >= self._cam_cache_size:
                 # drop the oldest entry (dict preserves insertion order)
                 self._cam_cache.pop(next(iter(self._cam_cache)))
@@ -306,6 +327,7 @@ class BatchingExecutor:
                 cam[None].astype(np.float32), (max(n, 1), 1, 1)
             )
         req = _Request(batch, n, dets, render_rotmat=render_rotmat)
+        req.enqueued_ns = time.perf_counter_ns()
         self.q.put(req)
         if not req.event.wait(timeout):
             # best-effort: if the worker has not yet grouped it, the orphan
@@ -318,6 +340,16 @@ class BatchingExecutor:
 
     def shutdown(self):
         self._stop.set()
+
+    def report(self) -> dict:
+        """`GET /stats`: the statistics and, while the tracer is on, the
+        median and 95th percentile of `serve.queue_wait` in ms."""
+        out = self.stats
+        if profiling.enabled():
+            waits = [r["host_ms"] for r in profiling.records("serve.queue_wait")]
+            out["queue_wait_p50_ms"] = profiling.quantile(waits, 0.5)
+            out["queue_wait_p95_ms"] = profiling.quantile(waits, 0.95)
+        return out
 
     # -- worker side -----------------------------------------------------
     def _collect_group(self, group):
@@ -336,6 +368,7 @@ class BatchingExecutor:
                 item = self.q.get(timeout=wait) if wait > 0 else self.q.get_nowait()
             except queue.Empty:
                 break
+            item.dequeued_ns = time.perf_counter_ns()
             if item.cancelled:  # timed-out orphan: drop, don't compute
                 item.event.set()
                 continue
@@ -364,6 +397,7 @@ class BatchingExecutor:
         # larger than the new device batch — slice them instead of crashing
         # every request in the group with a negative pad.
         out_parts = []
+        before = profiling.last_root()
         for lo in range(0, rows, cap):
             chunk = {k: v[lo:lo + cap] for k, v in combined.items()}
             m = chunk["x"].shape[0]
@@ -385,6 +419,11 @@ class BatchingExecutor:
                     chunk["cam_rotmat"][m:] = np.eye(3, dtype=np.float32)
             out = pl._fwd(chunk, None)
             out_parts.append({k: v[:m] for k, v in fetch(out).items()})
+        root = profiling.last_root()
+        for r in group:
+            if r.enqueued_ns is not None and r.dequeued_ns is not None:
+                profiling.add("serve.queue_wait", r.enqueued_ns, r.dequeued_ns,
+                              parent=root if root is not before else None)
         out_host = (
             out_parts[0] if len(out_parts) == 1
             else {k: np.concatenate([p[k] for p in out_parts])
@@ -405,10 +444,10 @@ class BatchingExecutor:
             result["detections"] = detections_array(r.dets)
             r.result = result
             start += span
-        self.stats["requests"] += len(group)
-        self.stats["device_batches"] += 1
-        self.stats["coalesced_requests"] += len(group) - 1
-        self.stats["crops"] += rows
+        self._count("requests", len(group))
+        self._count("device_batches")
+        self._count("coalesced_requests", len(group) - 1)
+        self._count("crops", rows)
 
     def _loop(self):
         while not self._stop.is_set():
@@ -421,6 +460,7 @@ class BatchingExecutor:
                         first = self.q.get(timeout=0.1)
                     except queue.Empty:
                         continue
+                    first.dequeued_ns = time.perf_counter_ns()
                 if first.cancelled:
                     first.event.set()
                     continue
@@ -490,7 +530,7 @@ class WHMRServer:
                 elif self.path == "/meta":
                     self._json(200, server.meta)
                 elif self.path == "/stats":
-                    self._json(200, dict(server.executor.stats)
+                    self._json(200, server.executor.report()
                                if server.executor else
                                {"coalescing": False})
                 else:

@@ -56,6 +56,7 @@ from whmr_tpu_torch.models.smpl import joints_from_vertices, select_h36m_j14, sm
 from whmr_tpu_torch.models.vit import ViTFeatureExtractor
 from whmr_tpu_torch.ops.camera import decode_cam_angles, perspective_projection, weak_perspective_projection
 from whmr_tpu_torch.ops.rotation import euler_to_rotmat, rotmat_to_angle_axis
+from whmr_tpu_torch.utils import profiling
 
 
 def make_points_grid(grid_wh) -> np.ndarray:
@@ -167,7 +168,18 @@ class WHMR(nn.Module):
         the module's mode (`model.train()` / `model.eval()`); `generator`
         draws the training's drop path and dropout masks (on the inputs'
         device). `meta_masks` (B, 431, 1) feeds the Graphormer stage's
-        masked vertex modelling in training."""
+        masked vertex modelling in training.
+
+        Spans (utils/profiling.py): `whmr.forward` around the call,
+        `whmr.backbone`, `whmr.heads` (the init, pyramid and Tz head, then
+        the aux heads: two intervals) and `whmr.maf` (the MAF loop, the
+        Graphormer stage, global orientation and the world SMPL)."""
+        with profiling.span("whmr.forward"):
+            return self._forward(consts, x, center, scale, bbox_height, orig_shape, bbox_info, train,
+                                 j_regressor, full_x, cam_rotmat, meta_masks, generator)
+
+    def _forward(self, consts, x, center, scale, bbox_height, orig_shape, bbox_info, train, j_regressor,
+                 full_x, cam_rotmat, meta_masks, generator) -> Dict[str, Any]:
         if train != self.training:
             raise ValueError(
                 f"forward(train={train}) on a module in {'train' if self.training else 'eval'} "
@@ -191,57 +203,60 @@ class WHMR(nn.Module):
             render_rotmat = cam_rotmat
 
         # 2-4. Backbone, mean-parameter init, deconv pyramid.
-        s_feat = self._features(x, generator)
-        smpl_output = forward_init(consts, batch_size, c.img_res, j_regressor)
-        out_smpl = [smpl_output]
-        levels = self._pyramid_levels(s_feat)
-        s_feat = levels[-1]
+        with profiling.span("whmr.backbone"):
+            s_feat = self._features(x, generator)
+        with profiling.span("whmr.heads"):
+            smpl_output = forward_init(consts, batch_size, c.img_res, j_regressor)
+            out_smpl = [smpl_output]
+            levels = self._pyramid_levels(s_feat)
+            s_feat = levels[-1]
 
-        # 5. Tz head; stage-1 training detaches the pyramid (whmr.py:567-570).
-        tz_in = s_feat.detach() if (train and c.train.stage == 1) else s_feat
-        tz = tz_head_forward(self.conv, self.transformer_decoder, self.est_Tz, tz_in)
-        cam_state = CamState(bbox_info, center, scale, bbox_height, orig_shape, tz)
+            # 5. Tz head; stage-1 training detaches the pyramid (whmr.py:567-570).
+            tz_in = s_feat.detach() if (train and c.train.stage == 1) else s_feat
+            tz = tz_head_forward(self.conv, self.transformer_decoder, self.est_Tz, tz_in)
+            cam_state = CamState(bbox_info, center, scale, bbox_height, orig_shape, tz)
 
-        # 6. MAF loop (whmr.py:580-627).
-        body_feat = None
-        for rf_i in range(c.pymaf.n_iter):
-            pred_cam = smpl_output["pred_cam"].detach()
-            pred_shape = smpl_output["pred_shape"].detach()
-            pred_pose = smpl_output["rotmat"].detach().reshape(batch_size, -1)
-            level = levels[rf_i].permute(0, 2, 3, 1)  # NHWC view
-            maf = self.maf_extractor[rf_i]
-            if rf_i == 0:
-                pts = self.points_grid[None].expand(batch_size, -1, -1).to(level.dtype)
-                ref_feature, _ = maf.sampling(level, pts)
-            else:
-                ref_feature, _ = maf(level, smpl_output["markers"].detach(), pred_cam)
-            smpl_output, feat_cat = self.regressor[rf_i](
-                consts, ref_feature, cam_state, pred_pose, pred_shape, pred_cam, j_regressor,
-                generator,
+        with profiling.span("whmr.maf"):
+            # 6. MAF loop (whmr.py:580-627).
+            body_feat = None
+            for rf_i in range(c.pymaf.n_iter):
+                pred_cam = smpl_output["pred_cam"].detach()
+                pred_shape = smpl_output["pred_shape"].detach()
+                pred_pose = smpl_output["rotmat"].detach().reshape(batch_size, -1)
+                level = levels[rf_i].permute(0, 2, 3, 1)  # NHWC view
+                maf = self.maf_extractor[rf_i]
+                if rf_i == 0:
+                    pts = self.points_grid[None].expand(batch_size, -1, -1).to(level.dtype)
+                    ref_feature, _ = maf.sampling(level, pts)
+                else:
+                    ref_feature, _ = maf(level, smpl_output["markers"].detach(), pred_cam)
+                smpl_output, feat_cat = self.regressor[rf_i](
+                    consts, ref_feature, cam_state, pred_pose, pred_shape, pred_cam, j_regressor,
+                    generator,
+                )
+                if rf_i > 0:
+                    body_feat = feat_cat
+                out_smpl.append(smpl_output)
+
+            # 6b. Graphormer vertex refinement on the finest level (whmr.py:274-283).
+            if c.pymaf.grph_on:
+                out_smpl.append(self._graphormer_stage(
+                    consts, levels[-1].permute(0, 2, 3, 1), smpl_output, body_feat, cam_state,
+                    meta_masks, train, j_regressor, generator,
+                ))
+
+            # 7. Global orientation (from the last PARAMETRIC step) -> world SMPL (whmr.py:630-654).
+            global_rotmat1 = self.global_orient(
+                body_feat, cam_rotmat.to(body_feat.dtype), smpl_output["rotmat"][:, 0], generator
             )
-            if rf_i > 0:
-                body_feat = feat_cat
-            out_smpl.append(smpl_output)
-
-        # 6b. Graphormer vertex refinement on the finest level (whmr.py:274-283).
-        if c.pymaf.grph_on:
-            out_smpl.append(self._graphormer_stage(
-                consts, levels[-1].permute(0, 2, 3, 1), smpl_output, body_feat, cam_state,
-                meta_masks, train, j_regressor, generator,
-            ))
-
-        # 7. Global orientation (from the last PARAMETRIC step) -> world SMPL (whmr.py:630-654).
-        global_rotmat1 = self.global_orient(
-            body_feat, cam_rotmat.to(body_feat.dtype), smpl_output["rotmat"][:, 0], generator
-        )
-        global_aa = rotmat_to_angle_axis(global_rotmat1.reshape(-1, 3, 3)).reshape(-1, 3)
-        global_pose = torch.cat([global_aa, smpl_output["pose"][:, 3:]], dim=1)
-        global_full_rotmat = torch.cat([global_rotmat1, smpl_output["rotmat"][:, 1:]], dim=1)
-        world_out = smpl_forward(consts.smpl, smpl_output["pred_shape"], global_full_rotmat)
-        global_kp_3d = (
-            world_out.joints if j_regressor is None
-            else select_h36m_j14(j_regressor, world_out.vertices)
-        )
+            global_aa = rotmat_to_angle_axis(global_rotmat1.reshape(-1, 3, 3)).reshape(-1, 3)
+            global_pose = torch.cat([global_aa, smpl_output["pose"][:, 3:]], dim=1)
+            global_full_rotmat = torch.cat([global_rotmat1, smpl_output["rotmat"][:, 1:]], dim=1)
+            world_out = smpl_forward(consts.smpl, smpl_output["pred_shape"], global_full_rotmat)
+            global_kp_3d = (
+                world_out.joints if j_regressor is None
+                else select_h36m_j14(j_regressor, world_out.vertices)
+            )
 
         out: Dict[str, Any] = {
             "smpl_out": out_smpl,
@@ -256,10 +271,11 @@ class WHMR(nn.Module):
             "dpth_out": [],
         }
         # 8. Aux heads on the finest level (NHWC outputs).
-        if c.pymaf.aux_supv_on:
-            out["dp_out"].append(self.dp_head(s_feat))
-        if c.pymaf.depth_supv_on:
-            out["dpth_out"].append(self.dpth_head(s_feat))
+        with profiling.span("whmr.heads"):
+            if c.pymaf.aux_supv_on:
+                out["dp_out"].append(self.dp_head(s_feat))
+            if c.pymaf.depth_supv_on:
+                out["dpth_out"].append(self.dpth_head(s_feat))
         if c.pymaf.grph_on:
             out["refined"] = out_smpl[-1]
         out["vis"] = {

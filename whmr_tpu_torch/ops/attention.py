@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from whmr_tpu_torch.ops import cuda_build
+from whmr_tpu_torch.utils import profiling
 
 # Per-block dynamic shared memory an H100 grants (232,448 bytes).
 _MAX_SMEM = 232448
@@ -198,10 +199,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool =
     name = "fused_attention (K3)" if per_batch else "attention (K1)"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed ({variant} variant): cudaError {err}")
-    counted = fused_attention if per_batch else attention
-    counted.launches += 1
+    launches, mma_launches = ("k3.launches", "k3.mma_launches") if per_batch else ("k1.launches", "k1.mma_launches")
+    profiling.count(launches)
     if variant == "mma":
-        counted.mma_launches += 1
+        profiling.count(mma_launches)
     return o
 
 
@@ -257,31 +258,23 @@ def _apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool) -
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax((q/sqrt(D)) k^T) v over (B, H, N, D) tensors, in their dtype.
 
-    CUDA tensors go through the hand-written kernel (counted in
-    `attention.launches`, and its tensor-core launches, the "mma" variant
-    in either dtype, also in `attention.mma_launches`); CPU tensors through
+    CUDA tensors go through the hand-written kernel (counted in the
+    tracer's `k1.launches`, and its tensor-core launches, the "mma" variant
+    in either dtype, also in `k1.mma_launches`); CPU tensors through
     `attention_reference`. The variant follows from dtype and shape alone
     (`_variant`).
     """
     return _apply(q, k, v, False)
 
 
-attention.launches = 0
-attention.mma_launches = 0
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K3: the same function as `attention`, with the TPU kernel's launch
     shape of one block per batch row looping over the H heads.
 
-    CUDA tensors go through K3 (counted in `fused_attention.launches`, its
-    tensor-core launches also in `fused_attention.mma_launches`), in the
+    CUDA tensors go through K3 (counted in the tracer's `k3.launches`, its
+    tensor-core launches also in `k3.mma_launches`), in the
     variant `_variant` picks from dtype and shape; CPU tensors through
     `attention_reference`, which is K3's plain version too, since K3 runs
     K1's device routines: on the card its output equals K1's bit for bit.
     """
     return _apply(q, k, v, True)
-
-
-fused_attention.launches = 0
-fused_attention.mma_launches = 0

@@ -16,7 +16,7 @@ kept for `rasterize_pallas`'s signature.
 `tile_hits` what the TPU kernel's chunk cull keeps.
 
 `rasterize_kernel(...)` has `rasterize_pallas`'s signature and result. For
-CUDA tensors it launches the kernel (counted in `rasterize_kernel.launches`)
+CUDA tensors it launches the kernel (counted in the tracer's `k2.launches`)
 or raises; for CPU tensors it runs `rasterize_kernel_reference`, the plain
 version, which the CPU tests hold against `rasterize_pallas(interpret=True)`
 and chip_smoke.py holds the kernel against on the card.
@@ -40,6 +40,7 @@ import torch
 
 from whmr_tpu_torch.ops import cuda_build
 from whmr_tpu_torch.ops.rasterizer import _BIG, RasterOut, _face_chunks, pixel_centers
+from whmr_tpu_torch.utils import profiling
 
 # Faces per chunk of the KD sort, of the TPU kernel's cull and of the tie
 # rule across chunks.
@@ -308,7 +309,7 @@ def _launch(tables, face_bbox, resolution, chunk, origin) -> Tuple[torch.Tensor,
         )
     if err != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: cudaError {err}")
-    rasterize_kernel.launches += 1
+    profiling.count("k2.launches")
     return zbuf, attrs
 
 
@@ -346,6 +347,3 @@ def rasterize_kernel(
     tables, face_bbox = kernel_inputs(verts_pix, verts_z, attrs, faces, chunk)
     zbuf, out = _launch(tables, face_bbox, resolution, chunk, origin)
     return RasterOut(attrs=out, zbuf=zbuf, mask=zbuf < _BIG * 0.5)
-
-
-rasterize_kernel.launches = 0

@@ -7,8 +7,9 @@ over the port's Trainer, NpzDataset and BatchLoader. Run it as
 
 It trains on the card unless `--device cpu` is given, and raises when there
 is no card; it never falls back. Beside whmr_tpu's parser: `--device`;
-`--bf16` computes in torch.bfloat16; `--profile` writes a torch.profiler
-trace. `--regressor hmr` trains the HMR baseline (no GT render, no
+`--bf16` computes in torch.bfloat16; `--profile DIR` writes a torch.profiler
+trace of a few steps and, beside it, `spans_<pid>.json`: the tracer's
+summary of the window (utils/profiling.py). `--regressor hmr` trains the HMR baseline (no GT render, no
 `--grad_accum`).
 
 Parallel training runs one process a card under torchrun, which the CLI
@@ -97,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "threads)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler (Chrome trace) of a few "
-                        "training steps into DIR (view with ui.perfetto.dev)")
+                        "training steps into DIR (view with ui.perfetto.dev), "
+                        "and the spans' summary of the window (spans_<pid>.json)")
     p.add_argument("--profile_steps", type=int, default=3,
                    help="steps inside the --profile trace window")
     p.add_argument("--device", default="cuda",

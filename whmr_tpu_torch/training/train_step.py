@@ -28,6 +28,12 @@ round differently.
 `hmr_train_step` is the HMR baseline's step (`regressor="hmr"`): no GT
 render, the `hmr_loss` subset, no gradient accumulation. `train.fused_adam`
 selects the flat-buffer Adam of training/optim.py.
+
+Spans (utils/profiling.py): each step is a `train.step` root holding
+`train.targets` (`gt_targets`), `train.forward` (the model's forward, whose
+`whmr.*` spans nest here, and the loss), `train.backward` (autograd's
+dispatch) and `train.optimizer` (the gradient norm, Adam, the clip and the
+EMA).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from whmr_tpu_torch.ops.iuv import iuv_img2map
 from whmr_tpu_torch.ops.rotation import batch_rodrigues
 from whmr_tpu_torch.training.gt_renderer import RenderConsts, gt_camera_from_cam_t, render_gt_maps
 from whmr_tpu_torch.training.losses import hmr_loss, whmr_loss
+from whmr_tpu_torch.utils import profiling
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -305,15 +312,18 @@ def _backward(
     """Forward, loss and backward of one (micro)batch: the gradients add
     into the parameters' `.grad`, the BatchNorm running statistics update in
     place. Returns the losses (this rank's, on a mesh)."""
-    gt_vertices, gt_sub, gt_temp, uvia_gt, depth_gt = gt_targets(cfg, consts, batch, render_consts)
-    preds = model(
-        consts, _model_input(batch), batch["center"], batch["scale"], batch["bbox_height"],
-        batch["orig_shape"], batch["bbox_info"], train=True, meta_masks=batch.get("meta_mask"),
-        generator=generator,
-    )
-    losses = whmr_loss(cfg, preds, batch, gt_vertices, gt_sub, gt_temp, uvia_gt=uvia_gt,
-                       depth_gt=depth_gt, group=data_group(state.mesh))
-    losses["loss"].backward()
+    with profiling.span("train.targets"):
+        gt_vertices, gt_sub, gt_temp, uvia_gt, depth_gt = gt_targets(cfg, consts, batch, render_consts)
+    with profiling.span("train.forward"):
+        preds = model(
+            consts, _model_input(batch), batch["center"], batch["scale"], batch["bbox_height"],
+            batch["orig_shape"], batch["bbox_info"], train=True, meta_masks=batch.get("meta_mask"),
+            generator=generator,
+        )
+        losses = whmr_loss(cfg, preds, batch, gt_vertices, gt_sub, gt_temp, uvia_gt=uvia_gt,
+                           depth_gt=depth_gt, group=data_group(state.mesh))
+    with profiling.span("train.backward"):
+        losses["loss"].backward()
     return {k: v.detach() for k, v in losses.items()}
 
 
@@ -385,11 +395,19 @@ def train_step(
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step; metrics are the losses and the pre-clip
     gradient norm, as device scalars (the global batch's on a mesh)."""
-    grads, losses = _microbatch_grads(cfg, model, state, consts, batch, generator, render_consts)
-    metrics = _sync(state, grads, losses)
-    norm = state.grad_norm(list(grads.values()))
-    metrics["grad_norm"] = norm
-    return state.apply_gradients(grads, norm), metrics
+    with profiling.span("train.step"):
+        grads, losses = _microbatch_grads(cfg, model, state, consts, batch, generator, render_consts)
+        metrics = _sync(state, grads, losses)
+        return _update(state, grads, metrics)
+
+
+def _update(state: TrainState, grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor]):
+    """The optimizer's part of a step: the pre-clip gradient norm into
+    `metrics`, then Adam, the clip and the EMA."""
+    with profiling.span("train.optimizer"):
+        norm = state.grad_norm(list(grads.values()))
+        metrics["grad_norm"] = norm
+        return state.apply_gradients(grads, norm), metrics
 
 
 def train_step_accum(
@@ -407,25 +425,24 @@ def train_step_accum(
     all-reduce across ranks, trainer.py:614); BatchNorm statistics chain from
     one microbatch to the next. On a mesh the gradients are synchronised
     once, after the last microbatch."""
-    accum = next(iter(batches.values())).shape[0]
-    _zero_grads(state)
-    lsum = None
-    try:
-        for i in range(accum):
-            _set_fsdp_sync(model, i == accum - 1)
-            losses = _backward(cfg, model, state, consts, {k: v[i] for k, v in batches.items()}, generator,
-                               render_consts)
-            lsum = losses if lsum is None else {k: lsum[k] + v for k, v in losses.items()}
-    finally:
-        _set_fsdp_sync(model, True)
-    inv = 1.0 / accum
-    gsum = _take_grads(state)
-    metrics = _sync(state, gsum, lsum)
-    grads = {k: g * inv for k, g in gsum.items()}
-    metrics = {k: v * inv for k, v in metrics.items()}
-    norm = state.grad_norm(list(grads.values()))
-    metrics["grad_norm"] = norm
-    return state.apply_gradients(grads, norm), metrics
+    with profiling.span("train.step"):
+        accum = next(iter(batches.values())).shape[0]
+        _zero_grads(state)
+        lsum = None
+        try:
+            for i in range(accum):
+                _set_fsdp_sync(model, i == accum - 1)
+                losses = _backward(cfg, model, state, consts, {k: v[i] for k, v in batches.items()}, generator,
+                                   render_consts)
+                lsum = losses if lsum is None else {k: lsum[k] + v for k, v in losses.items()}
+        finally:
+            _set_fsdp_sync(model, True)
+        inv = 1.0 / accum
+        gsum = _take_grads(state)
+        metrics = _sync(state, gsum, lsum)
+        grads = {k: g * inv for k, g in gsum.items()}
+        metrics = {k: v * inv for k, v in metrics.items()}
+        return _update(state, grads, metrics)
 
 
 def hmr_train_step(
@@ -442,16 +459,17 @@ def hmr_train_step(
     crop-frame projection and `hmr_loss`; the same optimizer, EMA and mesh
     handling as `train_step`. `state` is `create_train_state` of the HMR
     model."""
-    _zero_grads(state)
-    rotmat, betas, cam = model(consts, _model_input(batch), train=True, generator=generator)
-    # Geometry in at least fp32, whatever the compute dtype.
-    rotmat, betas, cam = (v.to(torch.promote_types(v.dtype, torch.float32)) for v in (rotmat, betas, cam))
-    joints = smpl_forward(consts.smpl, betas, rotmat).joints
-    kp_2d = weak_perspective_projection(joints, cam, cfg.img_res)
-    losses = hmr_loss(cfg, rotmat, betas, cam, kp_2d, joints, batch, group=data_group(state.mesh))
-    losses["loss"].backward()
-    grads = _take_grads(state)
-    metrics = _sync(state, grads, {k: v.detach() for k, v in losses.items()})
-    norm = state.grad_norm(list(grads.values()))
-    metrics["grad_norm"] = norm
-    return state.apply_gradients(grads, norm), metrics
+    with profiling.span("train.step"):
+        _zero_grads(state)
+        with profiling.span("train.forward"):
+            rotmat, betas, cam = model(consts, _model_input(batch), train=True, generator=generator)
+            # Geometry in at least fp32, whatever the compute dtype.
+            rotmat, betas, cam = (v.to(torch.promote_types(v.dtype, torch.float32)) for v in (rotmat, betas, cam))
+            joints = smpl_forward(consts.smpl, betas, rotmat).joints
+            kp_2d = weak_perspective_projection(joints, cam, cfg.img_res)
+            losses = hmr_loss(cfg, rotmat, betas, cam, kp_2d, joints, batch, group=data_group(state.mesh))
+        with profiling.span("train.backward"):
+            losses["loss"].backward()
+        grads = _take_grads(state)
+        metrics = _sync(state, grads, {k: v.detach() for k, v in losses.items()})
+        return _update(state, grads, metrics)

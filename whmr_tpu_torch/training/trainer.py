@@ -53,7 +53,6 @@ flag at each step boundary, over a host (gloo) group.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import itertools
 import json
@@ -251,18 +250,15 @@ class Trainer:
         # torch.profiler window, set by enable_profiling: train_epoch opens
         # the trace after `skip` warm-up steps and closes it `steps` later.
         self._profile = None
-        # Host-clock spans of the loop ("step": a step's enqueue, "log": the
-        # metric read-back, "save": a checkpoint call), recorded when a
-        # profiling.Timer is set here; off by default.
-        self.timer: Optional[profiling.Timer] = None
-
-    def _span(self, name: str):
-        return self.timer.span(name) if self.timer is not None else contextlib.nullcontext()
 
     def enable_profiling(self, log_dir: str, steps: int = 3, skip: int = 2):
         """Capture a Chrome trace of `steps` training steps, starting after
         `skip` steps (so warm-up and cold caches stay out of the window).
-        One capture per process."""
+        The port's spans record for the life of the trace; beside it,
+        `spans_<pid>.json` holds the window's `profiling.summary()`. The
+        loop's spans are
+        `fit.step` (a step's enqueue), `fit.log` (the metric read-back) and
+        `fit.save` (a checkpoint call). One capture per process."""
         self._profile = {"dir": log_dir, "steps": steps, "skip": skip,
                          "active": False, "done": False, "prof": None}
 
@@ -419,7 +415,7 @@ class Trainer:
         host memory is still synchronous, so the next step may update the
         parameters and moments in place safely; used by mid-epoch periodic
         saves."""
-        with self._span("save"):
+        with profiling.span("fit.save"):
             # Under FSDP/TP every rank takes part in the gather; only rank
             # 0 writes.
             payload = self._full(self._payload(batch_idx))
@@ -466,12 +462,19 @@ class Trainer:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._flag_group)
         return bool(t.item())
 
+    def _start_profile(self):
+        # drain in-flight steps so the window holds only the traced steps
+        self._sync()
+        profiling.reset(counters=False)
+        self._profile.update(prof=profiling.start_trace(), active=True)
+
     def _stop_profile(self):
         prof = self._profile
         self._sync()
         path = profiling.stop_trace(prof["prof"], prof["dir"])
+        spans = profiling.dump(os.path.join(prof["dir"], f"spans_{os.getpid()}.json"))
         prof.update(active=False, done=True, prof=None)
-        print(f"[trainer] profile trace written to {path}", flush=True)
+        print(f"[trainer] profile trace written to {path}, span summary to {spans}", flush=True)
 
     def train_epoch(
         self,
@@ -510,13 +513,10 @@ class Trainer:
             if prof and not prof["done"]:
                 rel = i - start_batch
                 if not prof["active"] and rel == prof["skip"]:
-                    # drain in-flight steps so the window holds only the
-                    # traced steps
-                    self._sync()
-                    prof.update(prof=profiling.start_trace(), active=True)
+                    self._start_profile()
                 elif prof["active"] and rel == prof["skip"] + prof["steps"]:
                     self._stop_profile()
-            with self._span("step"):
+            with profiling.span("fit.step"):
                 self.state, metrics = self._step(batch)
             self.batch_idx = i + 1
             self.steps_seen += 1
@@ -524,7 +524,7 @@ class Trainer:
                 max_steps is not None and i == max_steps - 1
             ):
                 # one read-back of all the metrics
-                with self._span("log"):
+                with profiling.span("fit.log"):
                     values = torch.stack([v.float() for v in metrics.values()]).tolist()
                 last = dict(zip(metrics.keys(), values))
                 self.metrics.write(self.state.step, last)
