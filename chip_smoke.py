@@ -19,7 +19,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sends to tensor cores (bf16 at N <= 256 and D % 8 == 0; fp32 at N <= 192
    and D % 4 == 0) took them and no other did, and that K3's
    output equals K1's bit for bit in bf16 and wherever fp32 ran on tensor
-   cores. K2
+   cores. K1 on the fused qkv projection (`attention_qkv`) at the infer
+   cells' heads, (192, 16, 192, 64) and (192, 12, 192, 64): bit for bit
+   against attention() on contiguous copies, one packed launch, timed
+   beside attention() and the ViT block's former path with its two layout
+   copies. K2
    (rasterizer) at the train step's render (B=64 posed bodies with their
    least-squares GT cameras, the 13,776-face topology, the 128x96 window at
    origin (16, 0)), on a ragged case (ties
@@ -30,7 +34,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    world SMPL) in bf16 with vit.attn_impl="pallas", seeded random weights and
    synthetic SMPL assets: B=16 crops without a frame and B=48 crops with one
    600x600 CamCalib frame. Counts every kernel's launches over exactly those
-   two forwards (all 24 of K1's on tensor cores), checks shapes and
+   two forwards (all 24 of K1's on tensor cores, each reading the qkv
+   projection in place: `k1.packed_launches` equals `k1.launches`), checks shapes and
    finiteness, and compares the vertices and the ViT feature map (which
    the attention drives directly) with the same weights under
    attn_impl="einsum" and in fp32.
@@ -127,7 +132,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of phase 8, in-process through main(argv) or `serve_cli.build_server`
    on 127.0.0.1 port 0. `whmr-export --camcalib split`, and `--eval` with
    --check (12 K1 launches in the program's batch, all on tensor cores: the
-   custom op `whmr::attention` is in the graph). The live
+   custom op `whmr::attention_qkv` is in the graph). The live
    `whmr-serve` (coalescing and CamCalib on) takes 64 requests with their
    boxes from 8 client threads over 24 composite frames of 1-3 people, a
    `/reload` in the middle; every response equals run_image on its request
@@ -365,8 +370,10 @@ GRAPHORMER_BF16_RTOL, GRAPHORMER_CPU_TOL = 5e-2, 1e-4
 # Each kernel's launch counter (utils/profiling.py), by the name the kernels
 # line gives it.
 LAUNCHES = {"attention": "k1.launches", "fused_attention": "k3.launches", "rasterizer": "k2.launches"}
-# The attention kernels also count their tensor-core launches.
+# The attention kernels also count their tensor-core launches, and K1 those
+# that read the fused qkv projection in place.
 MMA_LAUNCHES = {"attention": "k1.mma_launches", "fused_attention": "k3.mma_launches"}
+PACKED_LAUNCHES = {"attention": "k1.packed_launches"}
 
 
 _LAUNCHES_BEFORE = {}
@@ -375,18 +382,21 @@ _LAUNCHES_BEFORE = {}
 def reset_launches():
     """Starts a count of launches (the counters as they read now) and
     forgets the tracer's spans; the serving executors' counters run on."""
-    _LAUNCHES_BEFORE.update({c: profiling.counter(c) for c in (*LAUNCHES.values(), *MMA_LAUNCHES.values())})
+    _LAUNCHES_BEFORE.update({c: profiling.counter(c) for c in (*LAUNCHES.values(), *MMA_LAUNCHES.values(),
+                                                                *PACKED_LAUNCHES.values())})
     profiling.reset(counters=False)
 
 
 def read_launches():
-    """{name: launches} and {name + ".mma": tensor-core launches} since
+    """{name: launches}, {name + ".mma": tensor-core launches} and
+    {name + ".packed": launches on the qkv projection in place} since
     `reset_launches`."""
     def since(c):
         return profiling.counter(c) - _LAUNCHES_BEFORE.get(c, 0)
 
     out = {name: since(c) for name, c in LAUNCHES.items()}
     out.update({f"{name}.mma": since(c) for name, c in MMA_LAUNCHES.items()})
+    out.update({f"{name}.packed": since(c) for name, c in PACKED_LAUNCHES.items()})
     return out
 
 
@@ -598,6 +608,46 @@ def phase_kernels():
                 check(torch.equal(got3, got), f"K3's output differs from K1's at {shape} {dtype}")
     log("K3 equals K1 bit for bit at every bf16 shape and every fp32 shape on tensor cores; bf16 at N <= 256 and "
         "D % 8 == 0 and fp32 at N <= 192 and D % 4 == 0 ran on tensor cores, the rest did not")
+    # K1 on the fused projection, at the infer cells' heads (ViT-L and ViT-B
+    # at B = 192) and the main path's (B = 16 and 48): against the plain
+    # version on the projection's views, then bit for bit against attention()
+    # on contiguous copies; at the infer cells' heads timed beside it and
+    # beside the ViT block's former path, the layout copy to (3, B, H, N, D),
+    # attention() and the copy back to (B, N, C).
+    for shape in ((192, 16, 192, 64), (192, 12, 192, 64), (16, 12, 192, 64), (48, 12, 192, 64)):
+        b, h, n_tok, d = shape
+        qkv = torch.randn(b, n_tok, 3, h, d, device="cuda", generator=g, dtype=torch.bfloat16)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        reset_launches()
+        got = k1.attention_qkv(qkv)
+        torch.cuda.synchronize()
+        n = read_launches()
+        check((n["attention"], n["attention.mma"], n["attention.packed"]) == (1, 1, 1),
+              f"attention_qkv {shape}: launches {n}, want 1 on tensor cores, packed")
+        want = k1.attention_reference(*qkv.permute(2, 0, 3, 1, 4).unbind(0)).transpose(1, 2)
+        err = (got.float() - want.float()).abs()
+        tol = k1_tolerance(want, torch.bfloat16)
+        errs[("qkv", shape, torch.bfloat16)] = err.max().item()
+        log(f"K1 {shape} bf16 on the qkv projection (attention_qkv): max_abs_err {err.max().item():.3g} "
+            f"(tolerance {tol.max().item():.3g})")
+        check(bool((err <= tol).all()), f"attention_qkv disagrees with the plain version at {shape} bf16")
+        check(torch.equal(got, k1.attention(q, k, v).transpose(1, 2)),
+              f"attention_qkv differs from attention() on contiguous copies at {shape}")
+        if b != 192:
+            continue
+
+        def copies():
+            x, y, z = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+            return k1.attention(x, y, z).transpose(1, 2).reshape(b, n_tok, h * d)
+
+        packed_ms = cuda_ms(lambda: k1.attention_qkv(qkv), 50)
+        k1_ms = cuda_ms(lambda: k1.attention(q, k, v), 50)
+        copies_ms = cuda_ms(copies, 50)
+        bound_ms, bound_by = attention_bound_ms(shape, torch.bfloat16)
+        log(f"K1 {shape} bf16 on the qkv projection (attention_qkv): {packed_ms * 1e3:.2f} us "
+            f"({bound_ms / packed_ms:.1%} of the {bound_ms * 1e3:.1f} us bound, {bound_by}), equal bit for bit to "
+            f"attention() on contiguous copies, which takes {k1_ms * 1e3:.2f} us ({bound_ms / k1_ms:.1%}); "
+            f"the block's former path with its two layout copies {copies_ms * 1e3:.2f} us")
     for name, fn in (("K1", k1.attention), ("K3", k1.fused_attention)):
         q = torch.randn(1, 2, 16, 32, device="cuda", requires_grad=True)
         try:
@@ -648,6 +698,10 @@ def phase_main_path():
     log(f"main path: {len(runs)} forwards, launches {launches}")
     check(launches["attention"] == 12 * len(runs), f"K1 launched {launches['attention']} times, want 12 a forward")
     check(launches["attention.mma"] == launches["attention"], "a K1 launch of the forward missed the tensor cores")
+    log(f"main path: K1 read the qkv projection in place in {launches['attention.packed']} of its "
+        f"{launches['attention']} launches (k1.packed_launches against k1.launches)")
+    check(launches["attention.packed"] == launches["attention"],
+          "a bf16 K1 launch of the forward did not read the qkv projection in place")
     check(launches["fused_attention"] == 0 and launches["rasterizer"] == 0, "K2 or K3 launched in the forward")
     for (b, frame), out in outs.items():
         for name, v in zip(("verts", "global_verts"), _verts(out)):
@@ -714,6 +768,7 @@ def phase_times(cfg, model, consts, inputs, launches, errs):
                     # paths' counts to the forwards', all checked to be 0
                     "launches": launches[name],
                     "mma_launches": launches[f"{name}.mma"],
+                    "packed_launches": launches.get(f"{name}.packed"),
                     "max_abs_err": errs[(shape, torch.bfloat16) if name == "attention" else ("K3", shape, torch.bfloat16)],
                     "ms": t,
                     "plain_ms": plain_ms,
@@ -2208,37 +2263,46 @@ def phase_serve(root, paths, cli_metric):
         f"launches {n}")
 
     # 5. K1 at the serving shape: held against its plain version through
-    # attention() and through the custom op, and timed beside
-    # scaled_dot_product_attention.
+    # attention_qkv() on a packed projection and through the custom op that
+    # exported and serving programs call (whmr::attention_qkv), and through
+    # attention() and whmr::attention, the op that bundles exported before
+    # the packed entry hold; timed beside scaled_dot_product_attention.
     shape = (SERVE_PEOPLE, 12, 192, 64)
     g = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v = (torch.randn(*shape, device="cuda", generator=g, dtype=torch.bfloat16) for _ in range(3))
+    qkv = torch.randn(shape[0], shape[2], 3, shape[1], shape[3], device="cuda", generator=g, dtype=torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
     want = k1.attention_reference(q, k, v)
     tol = k1_tolerance(want, torch.bfloat16)
     serve_errs = {}
-    for label, fn in (("attention()", k1.attention), ("torch.ops.whmr.attention", torch.ops.whmr.attention)):
+    for label, fn, packed in (("attention_qkv()", lambda: k1.attention_qkv(qkv).transpose(1, 2), 1),
+                              ("torch.ops.whmr.attention_qkv",
+                               lambda: torch.ops.whmr.attention_qkv(qkv).transpose(1, 2), 1),
+                              ("attention()", lambda: k1.attention(q, k, v), 0),
+                              ("torch.ops.whmr.attention", lambda: torch.ops.whmr.attention(q, k, v), 0)):
         reset_launches()
-        got = fn(q, k, v)
+        got = fn()
         torch.cuda.synchronize()
         n = read_launches()
-        check(n["attention"] == n["attention.mma"] == 1, f"K1 {shape} through {label}: launches {n}, want 1 on "
-              "tensor cores")
+        check((n["attention"], n["attention.mma"], n["attention.packed"]) == (1, 1, packed),
+              f"K1 {shape} through {label}: launches {n}, want 1 on tensor cores, {packed} packed")
         err = (got.float() - want.float()).abs()
         serve_errs[label] = err.max().item()
         check(bool((err <= tol).all()), f"K1 disagrees with its plain version at the serving shape {shape} bf16 "
               f"through {label}: max_abs_err {serve_errs[label]}")
+    qkv_ms = cuda_ms(lambda: k1.attention_qkv(qkv), 200)
+    op_ms = cuda_ms(lambda: torch.ops.whmr.attention_qkv(qkv), 200)
     ms = cuda_ms(lambda: k1.attention(q, k, v), 200)
-    op_ms = cuda_ms(lambda: torch.ops.whmr.attention(q, k, v), 200)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 200)
     bound_ms, bound_by = attention_bound_ms(shape, torch.bfloat16)
-    log(f"serve: K1 {shape} bf16 (the serving shape): max_abs_err {serve_errs['attention()']:.3g} through "
-        f"attention(), {serve_errs['torch.ops.whmr.attention']:.3g} through torch.ops.whmr.attention (tolerance "
-        f"{tol.max().item():.3g}); {ms * 1e3:.2f} us through attention(), {op_ms * 1e3:.2f} us "
-        f"through torch.ops.whmr.attention ({bound_ms / ms:.1%} of the {bound_ms * 1e3:.2f} us bound, {bound_by}); "
-        f"scaled_dot_product_attention {library_ms * 1e3:.2f} us; host time a call through attention() "
-        f"{host_us(lambda: k1.attention(q, k, v)):.1f} us, through the custom op (what an exported program calls) "
-        f"{host_us(lambda: torch.ops.whmr.attention(q, k, v)):.1f} us, through the wrapper's launch alone "
-        f"{host_us(lambda: k1._forward(q, k, v, False)):.1f} us")
+    log(f"serve: K1 {shape} bf16 (the serving shape): max_abs_err "
+        + ", ".join(f"{e:.3g} through {label}" for label, e in serve_errs.items())
+        + f" (tolerance {tol.max().item():.3g}); {qkv_ms * 1e3:.2f} us through attention_qkv(), {op_ms * 1e3:.2f} us "
+        f"through torch.ops.whmr.attention_qkv ({bound_ms / op_ms:.1%} of the {bound_ms * 1e3:.2f} us bound, "
+        f"{bound_by}), {ms * 1e3:.2f} us through attention() on contiguous q, k, v; scaled_dot_product_attention "
+        f"{library_ms * 1e3:.2f} us; host time a call through attention_qkv() "
+        f"{host_us(lambda: k1.attention_qkv(qkv)):.1f} us, through the custom op (what an exported program calls) "
+        f"{host_us(lambda: torch.ops.whmr.attention_qkv(qkv)):.1f} us, through the wrapper's launch alone "
+        f"{host_us(lambda: k1._forward_qkv(qkv)):.1f} us")
     return launches
 
 
@@ -2875,6 +2939,8 @@ def main():
         k["launches"] += sum(n[k["name"]] for n in runs)
         if k["mma_launches"] is not None:
             k["mma_launches"] += sum(n[f"{k['name']}.mma"] for n in runs)
+        if k.get("packed_launches") is not None:
+            k["packed_launches"] += sum(n.get(f"{k['name']}.packed", 0) for n in runs)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -104,6 +104,91 @@ def test_wrapper_checks_and_forward_only():
     assert profiling.counter("k3.launches") == 0
 
 
+def _packed_qkv(shape, seed, dtype=torch.float32):
+    """A (B, N, 3, H, D) projection holding `_qkv(shape, seed)`'s q, k and v."""
+    return torch.stack([t(x) for x in _qkv(shape, seed)], 0).permute(1, 3, 0, 2, 4).contiguous().to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_qkv_plain_matches_reference_and_pallas(shape, dtype):
+    """`attention_qkv` on the CPU is `attention_reference` on the
+    projection's (B, H, N, D) views, transposed to (B, N, H, D), bit for
+    bit; it equals `attention` on contiguous copies and holds whmr_tpu's
+    `fused_attention_heads(interpret=True)` at K1's tolerances."""
+    tdtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    qkv = _packed_qkv(shape, 4, tdtype)
+    got = tattn.attention_qkv(qkv)
+    b, h, n_, d = shape
+    assert got.shape == (b, n_, h, d) and got.dtype == tdtype and got.is_contiguous()
+    views = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    assert torch.equal(got, tattn.attention_reference(*views).transpose(1, 2))
+    copies = [x.contiguous() for x in views]
+    assert torch.equal(got, tattn.attention(*copies).transpose(1, 2))
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    want = n(fused_attention_heads(*(jnp.asarray(n(x)).astype(jdt) for x in copies), interpret=True))
+    want = np.swapaxes(want, 1, 2)
+    if dtype == "fp32":
+        np.testing.assert_allclose(n(got), want, atol=2e-5)
+    else:
+        np.testing.assert_allclose(n(got), want, atol=2 ** -7)
+        assert np.mean(n(got) == want) > 0.99
+
+
+@pytest.mark.parametrize("shape, dtype, packed", [
+    # bf16 on tensor cores (N <= 256, D % 8 == 0): read in place. The infer
+    # cells' heads, the serving batch, a tensor-parallel rank's 8 heads,
+    # ragged N and D = 32.
+    ((192, 16, 192, 64), torch.bfloat16, True), ((192, 12, 192, 64), torch.bfloat16, True),
+    ((8, 8, 192, 64), torch.bfloat16, True), ((4, 4, 130, 32), torch.bfloat16, True),
+    ((2, 3, 256, 128), torch.bfloat16, True),
+    # fp32 (3xTF32 or CUDA cores alike) and bf16 past the tensor-core
+    # range: contiguous (B, H, N, D) copies.
+    ((192, 12, 192, 64), torch.float32, False), ((2, 3, 100, 68), torch.float32, False),
+    ((2, 3, 257, 64), torch.bfloat16, False), ((2, 3, 50, 20), torch.bfloat16, False),
+])
+def test_attention_qkv_adapts_by_dtype_and_shape(shape, dtype, packed, monkeypatch):
+    """Whether K1 reads the projection in place follows from dtype and
+    shape alone, by `_variant`'s rule: bf16 on tensor cores is packed; every
+    other case hands `_launch` contiguous (B, H, N, D) copies (here a stand-in
+    recording what it is given, since this host has no card)."""
+    b, h, n_, d = shape
+    qkv = torch.empty(b, n_, 3, h, d, dtype=dtype, device="meta")
+    assert tattn._packed(qkv) == packed
+    assert packed == (dtype == torch.bfloat16 and tattn._variant(shape, dtype) == "mma")
+    if packed:
+        return
+    seen = []
+
+    def launch(q, k, v, per_batch=False, variant=None):
+        seen.append((q.shape, q.is_contiguous(), k.is_contiguous(), v.is_contiguous(), per_batch))
+        return tattn.attention_reference(q, k, v)
+
+    monkeypatch.setattr(tattn, "_launch", launch)
+    qkv = _packed_qkv((2, h, n_, d), 5, dtype)
+    got = tattn._launch_qkv(qkv)
+    assert seen == [((2, h, n_, d), True, True, True, False)]
+    assert got.shape == (2, n_, h, d) and got.is_contiguous()
+    assert torch.equal(got, tattn.attention_qkv(qkv))
+
+
+def test_attention_qkv_checks_and_forward_only():
+    qkv = torch.randn(1, 8, 3, 2, 16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="attention_qkv .K1. is forward-only"):
+        tattn.attention_qkv(qkv).sum().backward()
+    with pytest.raises(TypeError):
+        tattn.attention_qkv(qkv.detach().half())
+    with pytest.raises(ValueError, match="B, N, 3, H, D"):
+        tattn.attention_qkv(qkv.detach()[:, :, :2])
+    with pytest.raises(ValueError, match="B, N, 3, H, D"):
+        tattn.attention_qkv(qkv.detach()[0])
+    with pytest.raises(ValueError):
+        tattn.attention_qkv(torch.randn(1, 8, 3, 2, 130))
+    before = (profiling.counter("k1.launches"), profiling.counter("k1.packed_launches"))
+    tattn.attention_qkv(qkv.detach())
+    assert (profiling.counter("k1.launches"), profiling.counter("k1.packed_launches")) == before  # no kernel on the CPU
+
+
 @pytest.mark.parametrize("impl", ["einsum", "pallas"])
 def test_attention_module_matches_flax(impl):
     rng = np.random.RandomState(2)
@@ -379,10 +464,11 @@ def test_concurrent_first_use_builds_each_kernel_once(tmp_path, monkeypatch):
 
 
 def test_custom_op_is_k1_and_export_keeps_it():
-    """`torch.ops.whmr.attention` is K1's wrapper (on CPU tensors the plain
-    version); eager calls of `attention` launch without it, and torch.export
-    keeps it as one node a call, with the batch symbolic: the variant
-    depends on N and D alone."""
+    """`torch.ops.whmr.attention` and `torch.ops.whmr.attention_qkv` are K1's
+    wrappers (on CPU tensors the plain version); eager calls of `attention`
+    and `attention_qkv` launch without them, and torch.export keeps each as
+    one node a call, with the batch symbolic: the variant depends on N and
+    D alone."""
     q, k, v = (t(a) for a in _qkv((3, 2, 16, 8)))
     assert torch.equal(torch.ops.whmr.attention(q, k, v), tattn.attention_reference(q, k, v))
     assert torch.equal(tattn.attention(q, k, v), tattn.attention_reference(q, k, v))
@@ -401,3 +487,25 @@ def test_custom_op_is_k1_and_export_keeps_it():
     assert batch.lower <= 1 and batch.upper > 2**31
     x = torch.randn(5, 2, 16, 8)
     assert torch.equal(program.module()(x), Block()(x))
+
+    # The packed entry point: its own operator, one node a call, the batch
+    # symbolic; `torch.ops.whmr.attention` stays registered beside it.
+    qkv = _packed_qkv((3, 2, 16, 8), 6)
+    views = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    assert torch.equal(torch.ops.whmr.attention_qkv(qkv), tattn.attention_reference(*views).transpose(1, 2))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tattn, "attention_qkv_op", None)
+        assert torch.equal(tattn.attention_qkv(qkv), torch.ops.whmr.attention_qkv(qkv))
+
+    class PackedBlock(torch.nn.Module):
+        def forward(self, x):
+            return tattn.attention_qkv(x * 0.5).reshape(x.shape[0], x.shape[1], -1) + 1.0
+
+    program = torch.export.export(PackedBlock(), (torch.randn(3, 16, 3, 2, 8),),
+                                  dynamic_shapes=({0: torch.export.Dim("B")},), strict=False)
+    targets = [str(n.target) for n in program.graph.nodes]
+    assert targets.count("whmr.attention_qkv.default") == 1 and "whmr.attention.default" not in targets
+    (batch,) = program.range_constraints.values()
+    assert batch.lower <= 1 and batch.upper > 2**31
+    x = torch.randn(5, 16, 3, 2, 8)
+    assert torch.equal(program.module()(x), PackedBlock()(x))

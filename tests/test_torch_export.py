@@ -1,6 +1,6 @@
 """`whmr-export` of whmr_tpu_torch (torch.export bundles) at `tiny_config`
 on the CPU, under `vit.attn_impl="pallas"`, so that every program carries
-K1 as the operator `whmr::attention` (on the CPU its body is the plain
+K1 as the operator `whmr::attention_qkv` (on the CPU its body is the plain
 version). One bundle of each CamCalib mode (none, "batch", "split") and
 each variant (demo, eval): a polymorphic one run at two batch sizes, the
 others fixed; "split" and eval ones through the CLI, the eval one with
@@ -87,12 +87,12 @@ def _close(got, want, atol, rtol=0.0):
 
 
 def _k1_nodes(program):
-    return sum(str(n.target) == "whmr.attention.default" for n in program.graph.nodes)
+    return sum(str(n.target) == "whmr.attention_qkv.default" for n in program.graph.nodes)
 
 
 def test_polymorphic_bundle_keeps_k1_and_the_symbolic_batch(setup):
     """No CamCalib, batch 0: one program serves B=2 and B=3; K1 stays in
-    the graph as `whmr::attention`, once a ViT block."""
+    the graph as `whmr::attention_qkv`, once a ViT block."""
     cfg, out = setup["cfg"], str(setup["root"] / "poly")
     program = texport.export_serving(cfg, setup["model"], setup["consts"], 0)
     texport.save_exported(out, program, cfg, 0, None)

@@ -364,8 +364,9 @@ def test_rasterizer_kernel_refuses_windows_past_the_pair_count(cuda_device):
 
 @pytest.mark.cuda
 def test_attention_custom_op_is_the_kernel(cuda_device):
-    """`torch.ops.whmr.attention` (what an exported program calls) launches
-    K1, counted, and gives attention()'s result bit for bit."""
+    """`torch.ops.whmr.attention` (what bundles exported from the
+    (B, H, N, D) entry call) launches K1, counted, and gives attention()'s
+    result bit for bit."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(2, 12, 192, 64, device=cuda_device, generator=g, dtype=torch.bfloat16) for _ in range(3))
     before = (counter("k1.launches"), counter("k1.mma_launches"))
@@ -379,8 +380,9 @@ def test_attention_custom_op_is_the_kernel(cuda_device):
 @pytest.mark.cuda
 def test_exported_vit_block_keeps_k1(cuda_device):
     """torch.export of a one-block ViT-B in bf16 under attn_impl="pallas":
-    the program launches K1 once a call on tensor cores (the operator, not
-    a traced plain version) and equals the live module."""
+    the program holds K1 as one `whmr::attention_qkv` node and launches it
+    once a call on tensor cores, reading the projection in place (the
+    operator, not a traced plain version), and equals the live module."""
     from whmr_tpu_torch.config import ViTConfig
     from whmr_tpu_torch.models.vit import ViTBackbone
 
@@ -391,11 +393,119 @@ def test_exported_vit_block_keeps_k1(cuda_device):
         program = torch.export.export(vit, (x,), dynamic_shapes=({0: torch.export.Dim("B")},), strict=False)
     run = program.module()
     x = torch.randn(3, 3, 256, 192, device=cuda_device)
-    before = (counter("k1.launches"), counter("k1.mma_launches"))
+    names = ("k1.launches", "k1.mma_launches", "k1.packed_launches")
+    before = [counter(c) for c in names]
     with torch.no_grad():
         got = run(x)
         torch.cuda.synchronize()
-        launched = (counter("k1.launches") - before[0], counter("k1.mma_launches") - before[1])
+        launched = tuple(counter(c) - b for c, b in zip(names, before))
         want = vit(x)
-    assert launched == (1, 1)
+    assert [str(n.target) for n in program.graph.nodes].count("whmr.attention_qkv.default") == 1
+    assert launched == (1, 1, 1)
     assert torch.equal(got, want)
+
+
+def _qkv_copies(qkv):
+    """Contiguous (B, H, N, D) q, k and v of a (B, N, 3, H, D) projection."""
+    return qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+
+
+# (B, H, N, D): ViT-L's and ViT-B's heads at the infer cells' batch, the
+# serving batch, and a tensor-parallel rank's local heads (ViT-B at m = 2
+# with 16 heads: 8 a rank).
+QKV_SHAPES = [(192, 16, 192, 64), (192, 12, 192, 64), (8, 12, 192, 64), (8, 8, 192, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QKV_SHAPES)
+def test_attention_qkv_equals_attention_bit_for_bit(cuda_device, shape):
+    """K1 reading q, k and v in place from the (B, N, 3, H, D) projection and
+    storing (B, N, H, D) gives `attention`'s bits on contiguous copies,
+    transposed; each call is one launch, counted as packed."""
+    b, h, n, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn(b, n, 3, h, d, device=cuda_device, generator=g, dtype=torch.bfloat16)
+    names = ("k1.launches", "k1.mma_launches", "k1.packed_launches")
+    before = [counter(c) for c in names]
+    got = tattn.attention_qkv(qkv)
+    torch.cuda.synchronize()
+    assert tuple(counter(c) - x for c, x in zip(names, before)) == (1, 1, 1)
+    assert got.shape == (b, n, h, d) and got.is_contiguous()
+    assert torch.equal(got, tattn.attention(*_qkv_copies(qkv)).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 4, 130, 64), (4, 4, 200, 64), (4, 4, 130, 32), (3, 6, 200, 32)])
+def test_attention_qkv_ragged_reads_zeros_past_n_and_d(cuda_device, shape):
+    """At ragged N the kernel stages K and V padded to 192 or 256 rows, and
+    at D = 32 Q and K padded to 64 columns; in the packed projection the
+    memory past N is the next sample's tokens and past D the next head's
+    columns. Every other sample holds NaN in token 0 and every other head
+    NaN in all its tokens, in q, k and v, and the sample after the last is
+    NaN: a padding row or column read from them instead of zeros would turn
+    the clean samples' heads to NaN. The output equals `attention` on
+    contiguous copies bit for bit (NaN included), and the clean heads are
+    finite and within one bf16 ulp of the plain version."""
+    b, h, n, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    buf = torch.full((b + 1, n, 3, h, d), float("nan"), device=cuda_device, dtype=torch.bfloat16)
+    qkv = buf[:b]
+    qkv.copy_(torch.randn(b, n, 3, h, d, device=cuda_device, generator=g, dtype=torch.bfloat16))
+    qkv[1::2, 0] = float("nan")
+    qkv[:, :, :, 1::2] = float("nan")
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16 == 0
+    before = counter("k1.packed_launches")
+    got = tattn.attention_qkv(qkv)
+    torch.cuda.synchronize()
+    assert counter("k1.packed_launches") == before + 1
+    copies = _qkv_copies(qkv)
+    want = tattn.attention(*copies).transpose(1, 2)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    clean = got[0::2, :, 0::2].float()
+    assert bool(torch.isfinite(clean).all())
+    plain = tattn.attention_reference(*copies).transpose(1, 2)[0::2, :, 0::2].float()
+    assert bool(((clean - plain).abs() <= 2**-7 * plain.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.cuda
+def test_attention_qkv_copies_strided_unaligned_fp32_and_rows(cuda_device):
+    """A strided or misaligned bf16 projection is copied once and then read
+    in place (packed); fp32, and bf16 past the tensor-core range (N = 300,
+    D = 20), take contiguous (B, H, N, D) copies through `attention`'s
+    variants, unpacked. Each equals `attention` on contiguous copies bit
+    for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    b, h, n, d = 3, 4, 192, 64
+    wide = torch.randn(b, n, 3, h, d + 8, device=cuda_device, generator=g, dtype=torch.bfloat16)
+    flat = torch.randn(b * n * 3 * h * d + 1, device=cuda_device, generator=g, dtype=torch.bfloat16)
+    cases = [(wide[..., :d], 1), (flat[1:].view(b, n, 3, h, d), 1),
+             (torch.randn(b, n, 3, h, d, device=cuda_device, generator=g), 0),
+             (torch.randn(2, 300, 3, 2, 64, device=cuda_device, generator=g, dtype=torch.bfloat16), 0),
+             (torch.randn(2, 50, 3, 3, 20, device=cuda_device, generator=g, dtype=torch.bfloat16), 0)]
+    for qkv, packed in cases:
+        before = (counter("k1.launches"), counter("k1.packed_launches"))
+        got = tattn.attention_qkv(qkv)
+        torch.cuda.synchronize()
+        assert (counter("k1.launches") - before[0], counter("k1.packed_launches") - before[1]) == (1, packed)
+        assert torch.equal(got, tattn.attention(*_qkv_copies(qkv)).transpose(1, 2)), (qkv.shape, qkv.dtype)
+
+
+@pytest.mark.cuda
+def test_attention_qkv_custom_op_is_the_kernel(cuda_device):
+    """`torch.ops.whmr.attention_qkv` (what an exported ViT block calls)
+    launches the packed K1, counted, and gives attention_qkv()'s bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    qkv = torch.randn(2, 192, 3, 12, 64, device=cuda_device, generator=g, dtype=torch.bfloat16)
+    before = counter("k1.packed_launches")
+    a = tattn.attention_qkv(qkv)
+    b = torch.ops.whmr.attention_qkv(qkv)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert counter("k1.packed_launches") == before + 2
+
+
+@pytest.mark.cuda
+def test_attention_qkv_backward_raises(cuda_device):
+    qkv = torch.randn(1, 16, 3, 2, 32, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tattn.attention_qkv(qkv).sum().backward()

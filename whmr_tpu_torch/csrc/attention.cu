@@ -40,6 +40,19 @@
 //     past D. TMA needs D % 8 == 0 (16-byte rows) and 16-byte aligned
 //     pointers: the wrapper sends other D to "rows" and copies misaligned
 //     inputs.
+//   - Packed staging: every map is 4-D, (D, N, H, B) over its tensor's own
+//     strides, and the loads and stores take (col, row, head, batch). Over
+//     contiguous (B, H, N, D) operands (K1, K3) that is the plain layout;
+//     for K1 over the ViT block's fused projection (`whmr_attention_qkv_fwd`),
+//     (B, N, 3, H, D), q, k and v are one map's strides (N: 3 H D elements,
+//     H: D, B: N 3 H D) at offsets 0, H D and 2 H D, and O goes through a
+//     map over a (B, N, H, D) buffer, token-major, where `proj` reads it.
+//     TMA takes any 16-byte-multiple stride, so the same 128-byte rows land
+//     in shared memory as from contiguous copies, and the output bits are
+//     the same, and no layout copy is needed around the block's attention. N
+//     and D stay dimensions of their own, so the bounds still zero the
+//     rows past N and columns past D, which in the projection hold the next
+//     sample's tokens and the next head's columns.
 //   - S = QK^T by wgmma.m64n64k16 (bf16 in, fp32 out, both operands read by
 //     descriptor from shared memory); each warp holds its 16 rows' whole
 //     score row in fp32 registers (the kernels are instantiated for 64, 128,
@@ -449,24 +462,27 @@ __device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// A (64 x rows) box of the (D, N, B * H) tensor map at (col, row, item),
-// out-of-bounds elements zero, to dst; completes `bar`'s transaction bytes.
-__device__ inline void tma_load(void* dst, const CUtensorMap* map, int col, int row, int item,
-                                uint64_t* bar) {
+// A (64 x rows) box of the (D, N, H, B) tensor map at (col, row, head,
+// batch), out-of-bounds elements zero, to dst; completes `bar`'s
+// transaction bytes.
+__device__ inline void tma_load(void* dst, const CUtensorMap* map, int col, int row, int head,
+                                int batch, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(item), "r"(smem_u32(bar))
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(batch),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
-// The (64 x 64) box at src to (col, row, item) of the tensor map, clipped to
-// its bounds; the calling thread commits it to its bulk group.
-__device__ inline void tma_store(const CUtensorMap* map, const void* src, int col, int row, int item) {
+// The (64 x 64) box at src to (col, row, head, batch) of the tensor map,
+// clipped to its bounds; the calling thread commits it to its bulk group.
+__device__ inline void tma_store(const CUtensorMap* map, const void* src, int col, int row, int head,
+                                 int batch) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
-      "r"(col), "r"(row), "r"(item), "r"(smem_u32(src))
+      "r"(col), "r"(row), "r"(head), "r"(batch), "r"(smem_u32(src))
       : "memory");
 }
 
@@ -476,7 +492,8 @@ __device__ inline void tma_store_commit_and_wait_read() {
 }
 
 // The four tensor maps of a launch: q, k, v (boxes of 64 columns x the
-// kernel's rows) and o (64 x 64).
+// kernel's rows) and o (64 x 64), each (D, N, H, B) over its tensor's own
+// strides (`Layout`).
 struct Maps {
   CUtensorMap q, k, v, o;
 };
@@ -566,16 +583,16 @@ struct HeadTiles {
 // The head's TMA loads (one thread): each tensor's column blocks, with rows
 // past N and columns past D zero-filled by the tensor maps' bounds. Q and K
 // complete `qk`, V completes `vb`, so the scores can start before V lands.
-__device__ inline void load_head(const HeadTiles& t, const Maps& m, int q_row0, int item,
+__device__ inline void load_head(const HeadTiles& t, const Maps& m, int q_row0, int head, int batch,
                                  uint64_t* qk, uint64_t* vb) {
   mbar_expect(qk, (uint32_t)(t.q_rows + t.kv_rows) * 128 * t.cb);
   for (int b = 0; b < t.cb; ++b) {
-    tma_load(t.q + (size_t)b * t.q_rows * 128, &m.q, 64 * b, q_row0, item, qk);
-    tma_load(t.k + (size_t)b * t.kv_rows * 128, &m.k, 64 * b, 0, item, qk);
+    tma_load(t.q + (size_t)b * t.q_rows * 128, &m.q, 64 * b, q_row0, head, batch, qk);
+    tma_load(t.k + (size_t)b * t.kv_rows * 128, &m.k, 64 * b, 0, head, batch, qk);
   }
   mbar_expect(vb, (uint32_t)t.kv_rows * 128 * t.cb);
   for (int b = 0; b < t.cb; ++b) {
-    tma_load(t.v + (size_t)b * t.kv_rows * 128, &m.v, 64 * b, 0, item, vb);
+    tma_load(t.v + (size_t)b * t.kv_rows * 128, &m.v, 64 * b, 0, head, batch, vb);
   }
 }
 
@@ -751,12 +768,14 @@ template <int NKP>
 __device__ inline void attend_and_store(unsigned char* q_t, int q_stride, const unsigned char* k_t,
                                         const unsigned char* v_t, int kv_stride, int n, int d,
                                         float scale, const Maps& m, uint64_t* v_bar,
-                                        uint32_t v_parity, int o_row0, int item) {
+                                        uint32_t v_parity, int o_row0, int head, int batch) {
   attend_tile_mma<NKP>(q_t, q_stride, k_t, v_t, kv_stride, n, d, scale, v_bar, v_parity);
   fence_proxy_async();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (int)threadIdx.x / 128) : "memory");
   if (threadIdx.x % 128 == 0) {
-    for (int b = 0; b < col_blocks(d); ++b) tma_store(&m.o, q_t + (size_t)b * q_stride, 64 * b, o_row0, item);
+    for (int b = 0; b < col_blocks(d); ++b) {
+      tma_store(&m.o, q_t + (size_t)b * q_stride, 64 * b, o_row0, head, batch);
+    }
     tma_store_commit_and_wait_read();
   }
 }
@@ -770,22 +789,21 @@ __device__ inline unsigned char* aligned_smem(unsigned char* p) {
 // m's q boxes are 64 rows, k's and v's NKP rows.
 template <int NKP>
 __global__ void __launch_bounds__(kMmaThreads, NKP <= 192 ? 3 : 1)
-attention_mma_kernel(const __grid_constant__ Maps m, int H, int N, int D, float scale) {
+attention_mma_kernel(const __grid_constant__ Maps m, int N, int D, float scale) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t qk_bar, v_bar;
   const HeadTiles t(aligned_smem(smem_raw), kMmaRows, NKP, D);
   const int row0 = blockIdx.x * kMmaRows;
-  const int item = blockIdx.z * H + blockIdx.y;
   if (threadIdx.x == 0) {
     mbar_init(&qk_bar, 1);
     mbar_init(&v_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    load_head(t, m, row0, item, &qk_bar, &v_bar);
+    load_head(t, m, row0, blockIdx.y, blockIdx.z, &qk_bar, &v_bar);
   }
   __syncthreads();
   mbar_wait(&qk_bar, 0);
   attend_and_store<NKP>(t.q, kMmaRows * 128, t.k, t.v, NKP * 128, N, D, scale, m, &v_bar, 0, row0,
-                        item);
+                        blockIdx.y, blockIdx.z);
 }
 
 // K3, "mma": a persistent grid; each block walks the items b * H + h
@@ -795,8 +813,8 @@ attention_mma_kernel(const __grid_constant__ Maps m, int H, int N, int D, float 
 // (stages == 2), or after it (stages == 1).
 template <int NKP>
 __global__ void __launch_bounds__(BatchMma<NKP>::kThreads, 1)
-attention_batch_mma_kernel(const __grid_constant__ Maps m, int items, int N, int D, float scale,
-                           int stages) {
+attention_batch_mma_kernel(const __grid_constant__ Maps m, int items, int H, int N, int D,
+                           float scale, int stages) {
   constexpr int kWarpgroups = BatchMma<NKP>::kWarpgroups;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t qk_bar[2], v_bar[2];
@@ -810,7 +828,7 @@ attention_batch_mma_kernel(const __grid_constant__ Maps m, int items, int N, int
       mbar_init(&v_bar[b], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    load_head(HeadTiles(base, NKP, NKP, D), m, 0, item, &qk_bar[0], &v_bar[0]);
+    load_head(HeadTiles(base, NKP, NKP, D), m, 0, item % H, item / H, &qk_bar[0], &v_bar[0]);
   }
   __syncthreads();
   for (int it = 0; item < items; ++it, item += gridDim.x) {
@@ -820,17 +838,17 @@ attention_batch_mma_kernel(const __grid_constant__ Maps m, int items, int N, int
     const HeadTiles t(base + buf * stage_bytes, NKP, NKP, D);
     // The other buffer was freed by the barrier that ended the last item.
     if (stages == 2 && next < items && threadIdx.x == 0) {
-      load_head(HeadTiles(base + (1 - buf) * stage_bytes, NKP, NKP, D), m, 0, next,
+      load_head(HeadTiles(base + (1 - buf) * stage_bytes, NKP, NKP, D), m, 0, next % H, next / H,
                 &qk_bar[1 - buf], &v_bar[1 - buf]);
     }
     mbar_wait(&qk_bar[buf], parity);
     for (int r = 64 * (threadIdx.x / 128); r < N; r += 64 * kWarpgroups) {
       attend_and_store<NKP>(t.q + (size_t)r * 128, NKP * 128, t.k, t.v, NKP * 128, N, D, scale, m,
-                            &v_bar[buf], parity, r, item);
+                            &v_bar[buf], parity, r, item % H, item / H);
     }
     __syncthreads();  // every warp is done with this buffer
     if (stages == 1 && next < items && threadIdx.x == 0) {
-      load_head(t, m, 0, next, &qk_bar[0], &v_bar[0]);
+      load_head(t, m, 0, next % H, next / H, &qk_bar[0], &v_bar[0]);
     }
   }
 }
@@ -887,24 +905,41 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The (D, N, B * H) bf16 tensor at ptr in boxes of 64 columns x box_rows
-// rows of one item, 128-byte swizzled, out-of-bounds elements zero.
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int D, int N, int items, int box_rows) {
+// Element strides of the N, H and B dimensions of a bf16 operand whose D
+// elements are contiguous: (B, H, N, D) contiguous, or the (B, N, 3, H, D)
+// qkv projection and the (B, N, H, D) output that K1 reads and writes in
+// place (`whmr_attention_qkv_fwd`).
+struct Layout {
+  int64_t n, h, b;
+};
+
+inline Layout bhnd_layout(int H, int N, int D) {
+  return {(int64_t)D, (int64_t)N * D, (int64_t)H * N * D};
+}
+
+// The (D, N, H, B) bf16 tensor at ptr with strides s, in boxes of 64
+// columns x box_rows rows of one (b, h), 128-byte swizzled, out-of-bounds
+// elements zero. D and N are dimensions of their own, so the bounds zero
+// the columns past D and the rows past N even where the memory beyond them
+// holds the next head's columns or the next sample's tokens.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int D, int N, int H, int B, Layout s,
+                       int box_rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)items};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.n * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// q, k and v share the layout `in`; o has `out`.
 template <int NKP>
-int launch_mma_nkp(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
-                   int D, float scale, int per_batch, cudaStream_t stream) {
+int launch_mma_nkp(const void* q, const void* k, const void* v, void* o, Layout in, Layout out,
+                   int B, int H, int N, int D, float scale, int per_batch, cudaStream_t stream) {
   if (D % 8 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) {
     return (int)cudaErrorInvalidValue;  // TMA reads 16-byte aligned rows
   }
@@ -912,10 +947,10 @@ int launch_mma_nkp(const void* q, const void* k, const void* v, void* o, int B, 
   Maps maps;
   memset(&maps, 0, sizeof(maps));
   cudaError_t err;
-  if ((err = tensor_map(&maps.q, q, D, N, items, per_batch ? NKP : kMmaRows)) != cudaSuccess ||
-      (err = tensor_map(&maps.k, k, D, N, items, NKP)) != cudaSuccess ||
-      (err = tensor_map(&maps.v, v, D, N, items, NKP)) != cudaSuccess ||
-      (err = tensor_map(&maps.o, o, D, N, items, kMmaRows)) != cudaSuccess) {
+  if ((err = tensor_map(&maps.q, q, D, N, H, B, in, per_batch ? NKP : kMmaRows)) != cudaSuccess ||
+      (err = tensor_map(&maps.k, k, D, N, H, B, in, NKP)) != cudaSuccess ||
+      (err = tensor_map(&maps.v, v, D, N, H, B, in, NKP)) != cudaSuccess ||
+      (err = tensor_map(&maps.o, o, D, N, H, B, out, kMmaRows)) != cudaSuccess) {
     return (int)err;
   }
   if (!per_batch) {
@@ -923,7 +958,7 @@ int launch_mma_nkp(const void* q, const void* k, const void* v, void* o, int B, 
     static size_t allowed[kMaxDevices];
     if ((err = allow_smem(attention_mma_kernel<NKP>, smem, allowed)) != cudaSuccess) return (int)err;
     const dim3 grid((N + kMmaRows - 1) / kMmaRows, H, B);
-    attention_mma_kernel<NKP><<<grid, kMmaThreads, smem, stream>>>(maps, H, N, D, scale);
+    attention_mma_kernel<NKP><<<grid, kMmaThreads, smem, stream>>>(maps, N, D, scale);
     return (int)cudaGetLastError();
   }
   const int stages = batch_mma_stages(N, D);
@@ -936,17 +971,17 @@ int launch_mma_nkp(const void* q, const void* k, const void* v, void* o, int B, 
   if (err != cudaSuccess) return (int)err;
   const int grid = items < slots ? items : slots;
   attention_batch_mma_kernel<NKP><<<grid, BatchMma<NKP>::kThreads, smem, stream>>>(
-      maps, items, N, D, scale, stages);
+      maps, items, H, N, D, scale, stages);
   return (int)cudaGetLastError();
 }
 
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
-               float scale, int per_batch, cudaStream_t s) {
+int launch_mma(const void* q, const void* k, const void* v, void* o, Layout in, Layout out, int B,
+               int H, int N, int D, float scale, int per_batch, cudaStream_t s) {
   switch (padded_keys(N)) {
-    case 64: return launch_mma_nkp<64>(q, k, v, o, B, H, N, D, scale, per_batch, s);
-    case 128: return launch_mma_nkp<128>(q, k, v, o, B, H, N, D, scale, per_batch, s);
-    case 192: return launch_mma_nkp<192>(q, k, v, o, B, H, N, D, scale, per_batch, s);
-    default: return launch_mma_nkp<256>(q, k, v, o, B, H, N, D, scale, per_batch, s);
+    case 64: return launch_mma_nkp<64>(q, k, v, o, in, out, B, H, N, D, scale, per_batch, s);
+    case 128: return launch_mma_nkp<128>(q, k, v, o, in, out, B, H, N, D, scale, per_batch, s);
+    case 192: return launch_mma_nkp<192>(q, k, v, o, in, out, B, H, N, D, scale, per_batch, s);
+    default: return launch_mma_nkp<256>(q, k, v, o, in, out, B, H, N, D, scale, per_batch, s);
   }
 }
 
@@ -1630,7 +1665,10 @@ int whmr_attention_fwd(const void* q, const void* k, const void* v, void* o, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_mma) {
     if (N > kMmaMaxN) return (int)cudaErrorInvalidValue;
-    if (is_bf16) return launch_mma(q, k, v, o, B, H, N, D, scale, 0, s);
+    if (is_bf16) {
+      const Layout l = bhnd_layout(H, N, D);
+      return launch_mma(q, k, v, o, l, l, B, H, N, D, scale, 0, s);
+    }
     return launch_f32_mma(q, k, v, o, B, H, N, D, scale, 0, s);
   }
   if (is_bf16) return launch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
@@ -1644,11 +1682,30 @@ int whmr_attention_batch_fwd(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_mma) {
     if (N > kMmaMaxN) return (int)cudaErrorInvalidValue;
-    if (is_bf16) return launch_mma(q, k, v, o, B, H, N, D, scale, 1, s);
+    if (is_bf16) {
+      const Layout l = bhnd_layout(H, N, D);
+      return launch_mma(q, k, v, o, l, l, B, H, N, D, scale, 1, s);
+    }
     return launch_f32_mma(q, k, v, o, B, H, N, D, scale, 1, s);
   }
   if (is_bf16) return launch_batch<__nv_bfloat16>(q, k, v, o, B, H, N, D, scale, s);
   return launch_batch<float>(q, k, v, o, B, H, N, D, scale, s);
+}
+
+// K1 in bf16 on tensor cores, reading q, k and v in place from the fused
+// projection: qkv a contiguous (B, N, 3, H, D) bf16 tensor, o a contiguous
+// (B, N, H, D) one, both 16-byte aligned, N <= 256 and D % 8 == 0. The same
+// kernel and staged values as whmr_attention_fwd on contiguous copies, so
+// the same output bits.
+int whmr_attention_qkv_fwd(const void* qkv, void* o, int B, int H, int N, int D, float scale,
+                           void* stream) {
+  if (D < 1 || D > kMaxD || N < 1 || N > kMmaMaxN) return (int)cudaErrorInvalidValue;
+  const int64_t hd = (int64_t)H * D;
+  const Layout in = {3 * hd, (int64_t)D, (int64_t)N * 3 * hd};
+  const Layout out = {hd, (int64_t)D, (int64_t)N * hd};
+  const bf16* q = static_cast<const bf16*>(qkv);
+  return launch_mma(q, q + hd, q + 2 * hd, o, in, out, B, H, N, D, scale, 0,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -3,8 +3,10 @@
 Counterpart of `whmr_tpu/inference/export.py`, with `torch.export` in place
 of `jax.export`. A bundle pins the exact traced graph: no model code is
 needed to serve it, only torch, numpy and this module (and the import of
-`whmr_tpu_torch.ops.attention`, which registers K1's operator
-`whmr::attention` before a program that holds it is loaded).
+`whmr_tpu_torch.ops.attention`, which registers K1's operators before a
+program that holds them is loaded: `whmr::attention_qkv`, which the
+pallas ViT block calls, and `whmr::attention`, the (B, H, N, D) entry,
+which older bundles hold).
 
 Layout of a bundle directory:
     forward.pt2    the serving graph, written by `torch.export.save`
@@ -403,7 +405,8 @@ class ExportedWHMR:
 
     def __init__(self, path: str, device=None):
         self.meta = bundle_meta(path)
-        # registers whmr::attention (K1), which a pallas-attention program holds
+        # registers K1's ops, whmr::attention_qkv and whmr::attention, which
+        # pallas-attention programs hold
         import whmr_tpu_torch.ops.attention  # noqa: F401
 
         self.device = torch.device(device or self.meta["device"])

@@ -19,7 +19,7 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
-from whmr_tpu_torch.ops.attention import attention
+from whmr_tpu_torch.ops.attention import attention_qkv
 
 
 def _cast(t, dtype):
@@ -269,7 +269,8 @@ class Attention(nn.Module):
       composition and not a TPU kernel; here its PyTorch counterpart
       `scaled_dot_product_attention`.
     - "pallas": the hand-written CUDA kernel K1 (ops/attention.py), with
-      whmr_tpu's kernel numerics.
+      whmr_tpu's kernel numerics, on the fused projection
+      (`attention_qkv`).
 
     Under tensor parallelism (`parallel.shard_params`) `qkv` yields this
     rank's [q_r | k_r | v_r] columns, so the forward runs on the local heads
@@ -296,9 +297,9 @@ class Attention(nn.Module):
         qkv = qkv.reshape(b, n, 3, heads, head_dim)
         body = ATTN_BODIES[self.impl]
         if body == "pallas":
-            # One copy to (3, B, H, N, D) makes q, k and v each contiguous BHND.
-            q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-            out = attention(q, k, v).transpose(1, 2)
+            # (B, N, H, D): in bf16 K1 reads q, k and v in place and writes
+            # token-major, so the reshape for `proj` copies nothing.
+            out = attention_qkv(qkv)
         elif body == "sdpa":
             q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
             out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)

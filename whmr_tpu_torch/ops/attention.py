@@ -25,13 +25,25 @@ only for CPU tensors; it never falls back from one to the other, nor from one
 variant to the other. Both are forward-only: whmr_tpu defines no VJP for its
 kernels, and the backward here raises rather than dropping gradients.
 
-K1 is also the operator `torch.ops.whmr.attention` (`attention_op`, a
-`torch.library.custom_op`), which `attention` calls while a trace runs
-(`torch.export`, `torch.compile`): the trace keeps it in a serving program
-as one node, where it could trace neither the ctypes launch nor an
-autograd.Function. Eager calls launch through the wrapper directly, without
-the dispatcher's host cost. Its variant follows from N, D and the dtype,
-never from the batch, so a program with a symbolic batch stays symbolic.
+`attention_qkv` is K1 on a ViT block's fused projection: it takes the
+(B, N, 3, H, D) qkv tensor as the projection writes it and returns (B, N,
+H, D), token-major, as `proj` reads it. In bf16 on tensor cores it stages q,
+k and v straight from the projection and stores O token-major, through 4-D
+tensor maps over each tensor's own strides (csrc/attention.cu, "Packed
+staging"): the same staged values as `attention` on contiguous copies, so
+the same output bits, without the two layout copies around the kernel
+(counted in `k1.packed_launches` besides `k1.launches`). Every other case
+(fp32, the CUDA-core variant) makes the contiguous (B, H, N, D) copies
+those variants read, by the same rule of dtype and shape as `_variant`.
+
+K1 is also the operators `torch.ops.whmr.attention` (`attention_op`) and
+`torch.ops.whmr.attention_qkv` (`attention_qkv_op`), `torch.library.custom_op`s
+that `attention` and `attention_qkv` call while a trace runs (`torch.export`,
+`torch.compile`): the trace keeps K1 in a serving program as one node,
+where it could trace neither the ctypes launch nor an autograd.Function.
+Eager calls launch through the wrapper directly, without the dispatcher's
+host cost. The variant follows from N, D and the dtype, never from the
+batch, so a program with a symbolic batch stays symbolic.
 """
 
 from __future__ import annotations
@@ -67,6 +79,10 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.whmr_attention_batch_fwd.restype = ctypes.c_int
         lib.whmr_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.whmr_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.whmr_attention_qkv_fwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.whmr_attention_qkv_fwd.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -153,6 +169,13 @@ def _smem_bytes(shape, dtype: torch.dtype, per_batch: bool, variant: str | None 
     return kv + (16 if per_batch else 8) * (n + d) * 4
 
 
+def _check_sizes(b, h, n, d, shape) -> None:
+    # Each size on its own: `min()` over a symbolic batch (torch.export)
+    # would guard the batch against the head count.
+    if b < 1 or h < 1 or n < 1 or not 1 <= d <= _MAX_D:
+        raise ValueError(f"attention takes B, H, N >= 1 and 1 <= D <= {_MAX_D}, got {tuple(shape)}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
@@ -160,11 +183,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"attention takes fp32 or bf16 q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"attention takes (B, H, N, D) q, k, v of one shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, h, n, d = q.shape
-    # Each size on its own: `min()` over a symbolic batch (torch.export)
-    # would guard the batch against the head count.
-    if b < 1 or h < 1 or n < 1 or not 1 <= d <= _MAX_D:
-        raise ValueError(f"attention takes B, H, N >= 1 and 1 <= D <= {_MAX_D}, got {tuple(q.shape)}")
+    _check_sizes(*q.shape, q.shape)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention takes contiguous q, k, v")
 
@@ -206,6 +225,36 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool =
     return o
 
 
+def _packed(qkv: torch.Tensor) -> bool:
+    """Whether K1 reads this (B, N, 3, H, D) projection in place: bf16 on
+    tensor cores, by `_variant`'s rule. fp32 and the CUDA-core variant read
+    contiguous (B, H, N, D) copies."""
+    b, n, _, h, d = qkv.shape
+    return qkv.dtype == torch.bfloat16 and _variant((b, h, n, d), qkv.dtype) == "mma"
+
+
+def _launch_qkv(qkv: torch.Tensor) -> torch.Tensor:
+    """K1 on the (B, N, 3, H, D) projection, returning (B, N, H, D)."""
+    b, n, _, h, d = qkv.shape
+    if not _packed(qkv):
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        return _launch(q, k, v).transpose(1, 2).contiguous()
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        # TMA reads 16-byte rows from 16-byte boundaries at the projection's
+        # strides: one copy makes it so, with the same result.
+        qkv = qkv.clone(memory_format=torch.contiguous_format)
+    o = qkv.new_empty((b, n, h, d))
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = _kernel_lib().whmr_attention_qkv_fwd(qkv.data_ptr(), o.data_ptr(), b, h, n, d, _scale(d), stream)
+    if err != 0:
+        raise RuntimeError(f"attention_qkv (K1) kernel launch failed (mma variant): cudaError {err}")
+    profiling.count("k1.launches")
+    profiling.count("k1.mma_launches")
+    profiling.count("k1.packed_launches")
+    return o
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool) -> torch.Tensor:
     if q.device.type == "cuda":
         return _launch(q, k, v, per_batch)
@@ -214,17 +263,28 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool)
     raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
 
 
-class _Attention(torch.autograd.Function):
+def _forward_qkv(qkv: torch.Tensor) -> torch.Tensor:
+    if qkv.device.type == "cuda":
+        return _launch_qkv(qkv)
+    if qkv.device.type == "cpu":
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        return attention_reference(q, k, v).transpose(1, 2).contiguous()
+    raise ValueError(f"attention runs on cuda or cpu tensors, got {qkv.device}")
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """Runs `fn(*args)`; its backward raises rather than dropping
+    gradients."""
+
     @staticmethod
-    def forward(ctx, q, k, v, per_batch):
-        ctx.per_batch = per_batch
-        return _forward(q, k, v, per_batch)
+    def forward(ctx, name, fn, *args):
+        ctx.name = name
+        return fn(*args)
 
     @staticmethod
     def backward(ctx, grad):
-        name = "fused_attention (K3)" if ctx.per_batch else "attention (K1)"
         raise NotImplementedError(
-            f"{name} is forward-only: whmr_tpu defines no VJP for its Pallas kernel, "
+            f"{ctx.name} is forward-only: whmr_tpu defines no VJP for its Pallas kernel, "
             'and its train step runs vit.attn_impl="einsum"'
         )
 
@@ -245,10 +305,25 @@ def _attention_fake(q, k, v):
     return torch.empty_like(q)
 
 
+@torch.library.custom_op("whmr::attention_qkv", mutates_args=())
+def attention_qkv_op(qkv: torch.Tensor) -> torch.Tensor:
+    """K1 on the fused projection as the operator
+    `torch.ops.whmr.attention_qkv`, kept by a trace as one node, like
+    `attention_op` (which stays registered for the programs that hold it)."""
+    return _forward_qkv(qkv)
+
+
+@attention_qkv_op.register_fake
+def _attention_qkv_fake(qkv):
+    b, n, _, h, d = qkv.shape
+    return qkv.new_empty((b, n, h, d))
+
+
 def _apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, per_batch: bool) -> torch.Tensor:
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _Attention.apply(q, k, v, per_batch)  # its backward raises
+        name = "fused_attention (K3)" if per_batch else "attention (K1)"
+        return _ForwardOnly.apply(name, _forward, q, k, v, per_batch)  # its backward raises
     if not per_batch and torch.compiler.is_compiling():
         return attention_op(q, k, v)  # a trace records K1 as one node
     # No graph to build: skip autograd's and the dispatcher's per-call cost.
@@ -278,3 +353,28 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     K1's device routines: on the card its output equals K1's bit for bit.
     """
     return _apply(q, k, v, True)
+
+
+def attention_qkv(qkv: torch.Tensor) -> torch.Tensor:
+    """`attention` over a fused projection: qkv (B, N, 3, H, D), q, k and v
+    along dim 2, as a ViT block's `qkv` Linear writes them; returns
+    softmax((q/sqrt(D)) k^T) v as (B, N, H, D), token-major.
+
+    CUDA tensors go through K1, in bf16 on tensor cores read in place
+    (counted in `k1.packed_launches` besides `k1.launches` and
+    `k1.mma_launches`), otherwise on contiguous (B, H, N, D) copies in the
+    variant `_variant` picks; CPU tensors through `attention_reference` on
+    the projection's (B, H, N, D) views. The output equals `attention` on
+    contiguous copies of q, k and v, transposed, bit for bit on the card.
+    """
+    if qkv.dtype not in _DTYPES:
+        raise TypeError(f"attention_qkv takes fp32 or bf16 qkv, got {qkv.dtype}")
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"attention_qkv takes a (B, N, 3, H, D) qkv, got {tuple(qkv.shape)}")
+    b, n, _, h, d = qkv.shape
+    _check_sizes(b, h, n, d, qkv.shape)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _ForwardOnly.apply("attention_qkv (K1)", _forward_qkv, qkv)  # its backward raises
+    if torch.compiler.is_compiling():
+        return attention_qkv_op(qkv)  # a trace records K1 as one node
+    return _forward_qkv(qkv)

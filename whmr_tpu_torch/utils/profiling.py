@@ -25,8 +25,10 @@ ms is the stream's time from the span's first work to its last, idle time
 inside it included. Where the two are about equal, the host sets the pace.
 
 Counters (`count(name, n)`) are plain integers that always count: the
-kernel wrappers' launches (`k1.launches`, `k1.mma_launches`, `k3.launches`,
-`k3.mma_launches`, `k2.launches`) and the serving executor's statistics.
+kernel wrappers' launches (`k1.launches`, `k1.mma_launches`,
+`k1.packed_launches`: those that read the fused qkv projection in place,
+`k3.launches`, `k3.mma_launches`, `k2.launches`) and the serving executor's
+statistics.
 
 `start_trace` / `stop_trace` write a Chrome trace (`chrome://tracing`,
 ui.perfetto.dev) of the host ops and, on the card, the CUDA kernels.
